@@ -1,0 +1,332 @@
+#!/usr/bin/env python3
+"""Build the port's CUDA kernels and drive the Groth16 prove path on one GPU.
+
+    python3 chip_smoke.py
+
+It takes no options: every phase runs, at full size. Phases, one line each
+(a failure raises and the script exits non-zero):
+  env      torch / CUDA versions and the card (nvidia-smi name, power limit)
+  build    nvcc build of kogarashi_tpu_torch/csrc, ptxas registers/spills
+  field    csrc/field.cuh against the plain field math on 2^16 Fq and Fr
+           elements (mul, sqr, add, sub, neg), exactly
+  ec       K1-K4 (scan_mixed, scan_proj, map_padd, map_pdouble) for G1 and
+           G2 against their plain versions at MSM shapes, exactly, timed
+  msm      2^20 G1 MSM (bench.py's workload, c = 16) and a 2^16 G2 MSM
+           against a host oracle; median of 3 with the host copy inside
+  groth16  SquareChainCircuit(2^20): setup -> prove -> verify on the card,
+           a tampered public input rejected; the kernel launch counters of
+           this run must all be > 0
+The last two lines are the kernels' JSON record and
+{"ok": true, "device": {...}}. Without a CUDA device it exits non-zero.
+"""
+
+from __future__ import annotations
+
+import json
+import logging
+import random
+import statistics
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+LOG2_MSM = 20  # the MSM phase's G1 size, and the shapes the ec phase checks
+LOG2_CONSTRAINTS = 20  # SquareChainCircuit size of the groth16 phase
+EC_SOURCE = "kogarashi_tpu_torch/csrc/ec.cu"
+REPLACES = {
+    "scan_mixed": "kogarashi_tpu/ops/ec_pallas.py:336",
+    "scan_proj": "kogarashi_tpu/ops/ec_pallas.py:336",
+    "map_padd": "kogarashi_tpu/ops/ec_pallas.py:453",
+    "map_pdouble": "kogarashi_tpu/ops/ec_pallas.py:453",
+}
+
+
+def log(phase: str, msg: str) -> None:
+    print(f"[{phase}] {msg}", flush=True)
+
+
+def nvidia_smi() -> str:
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip().splitlines()[0]
+
+
+def cuda_ms(fn, reps: int) -> float:
+    """Mean device milliseconds of fn() over reps launches (after a warm-up)."""
+    import torch
+
+    fn()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def timed(fn):
+    """(result, device milliseconds) of one call."""
+    import torch
+
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def max_abs_err(a, b) -> int:
+    import torch
+
+    return max(int((x.to(torch.int64) - y.to(torch.int64)).abs().max()) if x.numel() else 0
+               for x, y in zip(a, b))
+
+
+def phase_field(dev, n: int = 1 << 16) -> None:
+    import numpy as np
+    import torch
+
+    from kogarashi_tpu_torch.fields import mont
+    from kogarashi_tpu_torch.fields.spec import FQ, FR
+    from kogarashi_tpu_torch.ops.ec import field_op_cuda
+
+    rng = np.random.default_rng(7)
+    for spec, name in ((FQ, "fq"), (FR, "fr")):
+        def draw():
+            raw = rng.integers(0, 1 << 32, size=(n, 8), dtype=np.uint64)
+            vals = [int.from_bytes(r.astype("<u4").tobytes(), "little") % spec.p for r in raw]
+            vals[:3] = [0, 1, spec.p - 1]
+            return torch.from_numpy(spec.encode(vals)).to(dev)
+
+        a, b = draw(), draw()
+        for op in ("mul", "sqr", "add", "sub", "neg"):
+            got = field_op_cuda(name, op, a, b)
+            args = {"mul": (a, b), "sqr": (a,), "add": (a, b), "sub": (a, b), "neg": (a,)}[op]
+            want = getattr(mont, op)(*args, spec=spec)
+            torch.cuda.synchronize()
+            if not torch.equal(got, want):
+                raise AssertionError(f"field {name} {op}: CUDA differs from the plain version")
+        log("field", f"{spec.name}: mul sqr add sub neg exact on {n} elements (incl. 0, 1, p-1)")
+
+
+def random_points(curve, m: int, seed: int, dev):
+    """m random projective points (non-trivial Z) and their affine form."""
+    import numpy as np
+    import torch
+
+    from kogarashi_tpu_torch.curves import to_affine
+    from kogarashi_tpu_torch.ops.fixed_base import fixed_base_mul
+
+    sc = np.random.default_rng(seed).integers(0, 1 << 16, size=(16, m), dtype=np.uint32)
+    sc[15] &= 0x3FFF
+    sc[0] |= 1  # never the zero scalar
+    proj = fixed_base_mul(curve, torch.from_numpy(sc.astype(np.int32)).to(dev))
+    return proj, to_affine(curve, proj)
+
+
+def phase_ec(dev, log_n: int, windows: int) -> dict:
+    """K1-K4 against their plain versions. The scans run at the shape the
+    2^log_n MSM gives them (all windows side by side: L = scan depth,
+    C = windows * n / L, each window a permutation of the same points); the
+    maps at 2^log_n lanes (the setup's fixed-base adds); map_pdouble with
+    t = 16 at the window combine's one lane, and also timed at 2^16 lanes."""
+    import torch
+
+    from kogarashi_tpu_torch.curves import G1, G2
+    from kogarashi_tpu_torch.ops import ec
+    from kogarashi_tpu_torch.ops.msm import pneg, scan_depth
+
+    n = 1 << log_n
+    L = scan_depth(windows * n)
+    C = windows * n // L
+    gen = torch.Generator(device="cpu").manual_seed(5)
+    record = {}
+    for curve, seed in ((G1, 1), (G2, 2)):
+        rows = curve.rows
+        proj, (ax, ay, _) = random_points(curve, n, seed, dev)
+        perms = torch.stack([torch.randperm(n, generator=gen) for _ in range(windows)]).to(dev)
+
+        def scan_layout(t):
+            return t[:, perms].reshape(rows, L, C).contiguous()
+
+        scan_aff = tuple(scan_layout(t) for t in (ax, ay))
+        scan_prj = tuple(scan_layout(t) for t in proj)
+        p = tuple(t.contiguous() for t in proj)
+        q = tuple(t.roll(1, dims=1).contiguous() for t in proj)
+        ident = ec.identity_words(curve, (1,), dev)
+        negp = pneg(curve, tuple(t[:, 1:2] for t in p))
+        for k in range(3):  # lanes 0-3: P+P, P+(-P), O+Q, P+O
+            q[k][:, 0] = p[k][:, 0]
+            q[k][:, 1] = negp[k][:, 0]
+            p[k][:, 2] = ident[k][:, 0]
+            q[k][:, 3] = ident[k][:, 0]
+        pd = tuple(t[:, :1].contiguous() for t in p)
+        pd_wide = tuple(t[:, : 1 << 16].contiguous() for t in p)
+        cases = {
+            "scan_mixed": (lambda: ec.scan_mixed(curve, *scan_aff),
+                           lambda: ec.scan_mixed_plain(curve, *scan_aff)),
+            "scan_proj": (lambda: ec.scan_proj(curve, *scan_prj),
+                          lambda: ec.scan_proj_plain(curve, *scan_prj)),
+            "map_padd": (lambda: ec.map_padd(curve, p, q),
+                         lambda: ec.map_padd_plain(curve, p, q)),
+            "map_pdouble": (lambda: ec.map_pdouble(curve, pd, times=16),
+                            lambda: ec.map_pdouble_plain(curve, pd, times=16)),
+        }
+        for kname, (kern, plain) in cases.items():
+            want, plain_ms = timed(plain)
+            got, _ = timed(kern)
+            err = max_abs_err(got, want)
+            if err or not all(torch.equal(g, w) for g, w in zip(got, want)):
+                raise AssertionError(f"{kname}_{curve.name}: kernel differs from plain version")
+            ms = cuda_ms(kern, reps=3)
+            del want, got
+            record[f"{kname}_{curve.name}"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
+            log("ec", f"{kname}_{curve.name}: exact; kernel {ms:.3f} ms, plain {plain_ms:.3f} ms")
+        want, plain_ms = timed(lambda: ec.map_pdouble_plain(curve, pd_wide, times=16))
+        got, _ = timed(lambda: ec.map_pdouble(curve, pd_wide, times=16))
+        if max_abs_err(got, want):
+            raise AssertionError(f"map_pdouble_{curve.name} at 2^16 lanes: kernel differs")
+        ms = cuda_ms(lambda: ec.map_pdouble(curve, pd_wide, times=16), reps=3)
+        log("ec", f"map_pdouble_{curve.name} at 2^16 lanes: exact; kernel {ms:.3f} ms, plain {plain_ms:.3f} ms")
+        del scan_aff, scan_prj, p, q, pd, pd_wide, proj
+        torch.cuda.empty_cache()
+    log("ec", f"shapes: scans (rows, {L}, {C}), map_padd (rows, {n}), "
+              f"map_pdouble (rows, 1) t=16; rows 8 (G1) / 16 (G2)")
+    return record
+
+
+def msm_check(curve, log_n: int, c, seed_pts: int, seed_sc: int, dev, reps: int = 3):
+    """bench.py's workload: 64 distinct bases tiled to 2^log_n, host oracle
+    by effective scalar per base. Returns (median s, point-adds/s)."""
+    import numpy as np
+    import torch
+
+    from kogarashi_tpu_torch.curves import decode_points, prepare_points
+    from kogarashi_tpu_torch.fields.spec import FR
+    from kogarashi_tpu_torch.ops.msm import default_window, msm
+
+    n, nd = 1 << log_n, 64
+    r = FR.p
+    g = curve.pyref_spec.generator
+    rng = random.Random(seed_pts)
+    dk = [rng.randrange(1, r) for _ in range(nd)]
+    x64, y64, inf64 = prepare_points(curve, [k * g for k in dk], dev)
+    x, y, inf = x64.repeat(1, n // nd), y64.repeat(1, n // nd), inf64.repeat(n // nd)
+    sc = np.random.default_rng(seed_sc).integers(0, 1 << 16, size=(16, n), dtype=np.uint32)
+    sc[15] &= 0x3FFF  # < 2^254 < r
+    scalars = torch.from_numpy(sc.astype(np.int32)).to(dev)
+
+    sums = sc.astype(np.int64).reshape(16, n // nd, nd).sum(axis=1)  # (16, 64)
+    eff = [sum(int(sums[l, b]) << (16 * l) for l in range(16)) for b in range(nd)]
+    expected = (sum((e % r) * k for e, k in zip(eff, dk)) % r) * g
+
+    c = c or default_window(n)
+    msm(curve, x, y, inf, scalars, c=c)  # first call: allocator and caches warm
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = msm(curve, x, y, inf, scalars, c=c)
+        host = [o.cpu() for o in out]  # host copy inside the timed window
+        times.append(time.perf_counter() - t0)
+    if decode_points(curve, host)[0] != expected:
+        raise AssertionError(f"{curve.name} MSM 2^{log_n} differs from the host oracle")
+    med = statistics.median(times)
+    adds = n * -(-256 // c) / med
+    log("msm", f"{curve.name} n=2^{log_n} c={c}: oracle PASS; median {med:.4f} s of "
+               f"{[round(t, 4) for t in times]}; {adds:.4e} point-adds/s")
+    return med, adds
+
+
+def phase_groth16(dev, log2_m: int) -> dict:
+    import torch
+
+    from kogarashi_tpu_torch.groth16 import SquareChainCircuit, setup
+    from kogarashi_tpu_torch.ops import ec
+
+    logging.basicConfig(format="[groth16] %(message)s", stream=sys.stdout)
+    for name in ("kogarashi_tpu_torch.groth16.setup", "kogarashi_tpu_torch.groth16.prover"):
+        logging.getLogger(name).setLevel(logging.INFO)
+    circuit = SquareChainCircuit(1 << log2_m)
+    cs = circuit.build()
+    ec.reset_launches()  # counts from here on are the main path's
+    t0 = time.perf_counter()
+    prover, verifier = setup(circuit, random.Random(11), device=dev)
+    torch.cuda.synchronize()
+    t_setup = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    proof = prover.create_proof(circuit, random.Random(12))
+    t_prove = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ok = verifier.verify(proof, cs.x[1:])
+    t_verify = time.perf_counter() - t0
+    launches = dict(ec.LAUNCHES)
+    bad = verifier.verify(proof, [cs.x[1], cs.x[2] + 1])
+    if not ok:
+        raise AssertionError("Groth16 proof does not verify")
+    if bad:
+        raise AssertionError("Groth16 verifier accepted a tampered public input")
+    missing = [k for k, v in launches.items() if v <= 0]
+    if missing:
+        raise AssertionError(f"kernels not launched on the main path: {missing}")
+    log("groth16", f"SquareChainCircuit(2^{log2_m}): setup {t_setup:.3f} s, prove {t_prove:.3f} s, "
+                   f"verify {t_verify:.3f} s; verify True, tampered input rejected")
+    log("groth16", f"launches: {json.dumps(launches)}")
+    return launches
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; this script runs only on a GPU", file=sys.stderr)
+        return 1
+    if not (ROOT / "kogarashi_tpu_torch" / "csrc").is_dir():
+        print("chip_smoke: kogarashi_tpu_torch/ not found beside this script", file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(ROOT))
+    dev = torch.device("cuda", 0)
+    card = nvidia_smi()
+    log("env", f"python {sys.version.split()[0]}, torch {torch.__version__}, CUDA {torch.version.cuda}, "
+               f"devices {torch.cuda.device_count()}")
+    print(card, flush=True)
+
+    from kogarashi_tpu_torch.ops import _build
+
+    t0 = time.perf_counter()
+    path = _build.build()
+    _build.lib()
+    log("build", f"nvcc sm_90a in {time.perf_counter() - t0:.1f} s -> {path}")
+    for line in _build.ptxas_report():
+        log("build", line)
+
+    from kogarashi_tpu_torch.curves import G1, G2
+
+    phase_field(dev)
+    record = phase_ec(dev, LOG2_MSM, windows=16)
+    msm_check(G1, LOG2_MSM, 16, 0xBE7C4, 1, dev)
+    msm_check(G2, 16, None, 0xBE7C5, 2, dev)
+    launches = phase_groth16(dev, LOG2_CONSTRAINTS)
+
+    kernels = []
+    for key, rec in record.items():
+        kernels.append(dict(name=key, route="cuda", source=EC_SOURCE,
+                            replaces=REPLACES[key.rsplit("_", 1)[0]],
+                            launches=launches[key], **rec))
+    print(json.dumps({"kernels": kernels}), flush=True)
+    print(card, flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

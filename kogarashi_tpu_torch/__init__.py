@@ -1,0 +1,13 @@
+"""kogarashi_tpu_torch — the Groth16 prove path on PyTorch and hand-written CUDA.
+
+A port of `kogarashi_tpu` (JAX + Pallas) to PyTorch with CUDA C++ kernels for
+Hopper (sm_90a). `kogarashi_tpu` stays the reference; this package imports
+only its JAX-free modules (`constants`, `errors`, `utils`, `pyref`, `r1cs`).
+
+Data layout, everywhere: a field element is 8 little-endian 32-bit words in
+Montgomery form with R = 2^256, stored limb-major as int32 tensors holding
+the bit pattern, shaped (8 * ext, ...): 8 words for Fq/Fr, 16 for Fq2
+(c0 then c1). Every device op returns canonical values in [0, p).
+"""
+
+__version__ = "0.1.0"

@@ -1,0 +1,243 @@
+"""The four point kernels (K1-K4) and their plain PyTorch versions.
+
+Counterpart of `kogarashi_tpu/ops/ec_pallas.py`: `madd` :218, `padd` :241,
+`pdouble` :264 (RCB16 Alg 8/7/9, a = 0, identity (0:1:0)), and the kernels
+`scan_mixed` :416, `scan_proj` :427, `map_padd` :479, `map_pdouble` :487.
+The CUDA kernels are in `csrc/ec.cu`, instantiated for G1 (Fq) and G2 (Fq2).
+
+Shapes follow the JAX package: scans take (rows, L, C) word tensors and
+return the inclusive per-chunk prefix sums S[:, j, c] = sum of chunk c's
+elements 0..j; maps take (rows, C). rows = 8 (G1) or 16 (G2); int32 words in
+Montgomery form, canonical in and out.
+
+Dispatch: a CUDA tensor launches the kernel (and counts the launch in
+`LAUNCHES`); a CPU tensor runs the plain version. There is no fallback from
+one to the other.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..curves import Curve
+from ..fields import mont
+from . import _build
+
+KERNELS = ("scan_mixed", "scan_proj", "map_padd", "map_pdouble")
+LAUNCHES: dict = {f"{k}_{c}": 0 for k in KERNELS for c in ("g1", "g2")}
+
+
+def reset_launches() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+# ---------------------------------------------------------------------------
+# formulas on 16-bit halves, generic over the algebra (plain versions)
+# ---------------------------------------------------------------------------
+
+
+def identity(curve: Curve, shape, device):
+    A = curve.alg
+    return (A.zero(shape, device), A.one(shape, device), A.zero(shape, device))
+
+
+def identity_words(curve: Curve, shape, device):
+    """The identity (0 : 1 : 0) as a word batch of `shape`."""
+    return _w(identity(curve, tuple(shape), device))
+
+
+# Independent field operations are batched into one call (`*_many`): the
+# same canonical results in a third as many torch ops.
+
+
+def padd_h(curve: Curve, p, q):
+    """RCB16 Alg 7, a = 0."""
+    A = curve.alg
+    b3 = curve.b3_halves(p[0].shape[1:], p[0].device)
+    x1, y1, z1 = p
+    x2, y2, z2 = q
+    s1, s2, s3, s4, s5, s6 = A.add_many([(x1, y1), (x2, y2), (y1, z1), (y2, z2), (x1, z1), (x2, z2)])
+    t0, t1, t2, u3, u4, u5 = A.mul_many([(x1, x2), (y1, y2), (z1, z2), (s1, s2), (s3, s4), (s5, s6)])
+    v3, v4, v5 = A.sub_many([(u3, t0), (u4, t1), (u5, t0)])
+    t3, t4, t5 = A.sub_many([(v3, t1), (v4, t2), (v5, t2)])
+    t6 = A.add(A.add(t0, t0), t0)
+    t2b3, y5 = A.mul_many([(t2, b3), (t5, b3)])
+    zz, tt = A.add(t1, t2b3), A.sub(t1, t2b3)
+    m1, m2, m3, m4, m5, m6 = A.mul_many([(t3, tt), (t4, y5), (y5, t6), (tt, zz), (zz, t4), (t6, t3)])
+    x3 = A.sub(m1, m2)
+    y3, z3 = A.add_many([(m3, m4), (m5, m6)])
+    return (x3, y3, z3)
+
+
+def madd_h(curve: Curve, p, x2, y2):
+    """RCB16 Alg 8, a = 0: projective p + affine (x2, y2)."""
+    A = curve.alg
+    b3 = curve.b3_halves(p[0].shape[1:], p[0].device)
+    x1, y1, z1 = p
+    s1, s2 = A.add_many([(x2, y2), (x1, y1)])
+    t0, t1, u3, u4, u5, t2 = A.mul_many([(x1, x2), (y1, y2), (s1, s2), (y2, z1), (x2, z1), (b3, z1)])
+    t3 = A.sub(A.sub(u3, t0), t1)
+    t4, t5 = A.add_many([(u4, y1), (u5, x1)])
+    t6 = A.add(A.add(t0, t0), t0)
+    zz, tt = A.add(t1, t2), A.sub(t1, t2)
+    y5 = A.mul(b3, t5)
+    m1, m2, m3, m4, m5, m6 = A.mul_many([(t3, tt), (t4, y5), (y5, t6), (tt, zz), (zz, t4), (t6, t3)])
+    x3 = A.sub(m1, m2)
+    y3, z3 = A.add_many([(m3, m4), (m5, m6)])
+    return (x3, y3, z3)
+
+
+def pdouble_h(curve: Curve, p):
+    """RCB16 Alg 9, a = 0."""
+    A = curve.alg
+    b3 = curve.b3_halves(p[0].shape[1:], p[0].device)
+    x, y, z = p
+    t0, t1, zsq, xy = A.mul_many([(y, y), (y, z), (z, z), (x, y)])
+    t2 = A.mul(zsq, b3)
+    z8 = A.add(t0, t0)
+    z8 = A.add(z8, z8)
+    z8 = A.add(z8, z8)  # 8 y^2
+    x3, z3 = A.mul_many([(t2, z8), (t1, z8)])
+    y3, t2x2 = A.add_many([(t0, t2), (t2, t2)])
+    t0 = A.sub(t0, A.add(t2x2, t2))
+    u, xf = A.mul_many([(t0, y3), (t0, xy)])
+    y3, x3 = A.add_many([(u, x3), (xf, xf)])
+    return (x3, y3, z3)
+
+
+def _h(ts):
+    return tuple(mont.to_halves(t) for t in ts)
+
+
+def _w(ts):
+    return tuple(mont.to_words(t) for t in ts)
+
+
+def scan_mixed_plain(curve: Curve, x, y):
+    rows, L, C = x.shape
+    xh, yh = mont.to_halves(x), mont.to_halves(y)
+    acc = identity(curve, (C,), x.device)
+    out = [[], [], []]
+    for j in range(L):
+        acc = madd_h(curve, acc, xh[:, j], yh[:, j])
+        for o, a in zip(out, acc):
+            o.append(a)
+    return tuple(mont.to_words(torch.stack(o, dim=1)) for o in out)
+
+
+def scan_proj_plain(curve: Curve, x, y, z):
+    rows, L, C = x.shape
+    ph = _h((x, y, z))
+    acc = identity(curve, (C,), x.device)
+    out = [[], [], []]
+    for j in range(L):
+        acc = padd_h(curve, acc, tuple(c[:, j] for c in ph))
+        for o, a in zip(out, acc):
+            o.append(a)
+    return tuple(mont.to_words(torch.stack(o, dim=1)) for o in out)
+
+
+def map_padd_plain(curve: Curve, p, q):
+    return _w(padd_h(curve, _h(p), _h(q)))
+
+
+def map_pdouble_plain(curve: Curve, p, times: int = 1):
+    ph = _h(p)
+    for _ in range(times):
+        ph = pdouble_h(curve, ph)
+    return _w(ph)
+
+
+# ---------------------------------------------------------------------------
+# kernel wrappers
+# ---------------------------------------------------------------------------
+
+
+def _check(curve: Curve, ts, ndim: int):
+    dev = ts[0].device
+    shape = ts[0].shape
+    if len(shape) != ndim or shape[0] != curve.rows:
+        raise ValueError(f"{curve.name}: expected {ndim}-d ({curve.rows}, ...) words, got {tuple(shape)}")
+    for t in ts:
+        if t.dtype != torch.int32:
+            raise TypeError(f"expected int32 words, got {t.dtype}")
+        if t.device != dev or t.shape != shape:
+            raise ValueError("all coordinates must share one device and shape")
+        if not t.is_contiguous():
+            raise ValueError("coordinates must be contiguous")
+    if dev.type == "cuda":
+        return True
+    if dev.type == "cpu":
+        return False
+    raise ValueError(f"unsupported device {dev}")
+
+
+def _launch(kernel: str, curve: Curve, ins, outs, *ints):
+    with torch.cuda.device(ins[0].device):
+        stream = torch.cuda.current_stream().cuda_stream
+        fn = getattr(_build.lib(), f"kt_{kernel}_{curve.name}")
+        rc = fn(*[t.data_ptr() for t in ins], *[t.data_ptr() for t in outs], *ints, stream)
+    _build.check(rc, f"{kernel}_{curve.name}")
+    LAUNCHES[f"{kernel}_{curve.name}"] += 1
+
+
+def _empty3(like):
+    return tuple(torch.empty_like(like) for _ in range(3))
+
+
+def scan_mixed(curve: Curve, x, y):
+    """K1. x, y: (rows, L, C) canonical affine words -> (Sx, Sy, Sz)."""
+    if not _check(curve, (x, y), 3):
+        return scan_mixed_plain(curve, x, y)
+    _, L, C = x.shape
+    out = _empty3(x)
+    if L * C:
+        _launch("scan_mixed", curve, (x, y), out, L, C)
+    return out
+
+
+def scan_proj(curve: Curve, x, y, z):
+    """K2. Per-chunk inclusive scan of projective adds; (rows, L, C) each."""
+    if not _check(curve, (x, y, z), 3):
+        return scan_proj_plain(curve, x, y, z)
+    _, L, C = x.shape
+    out = _empty3(x)
+    if L * C:
+        _launch("scan_proj", curve, (x, y, z), out, L, C)
+    return out
+
+
+def map_padd(curve: Curve, p, q):
+    """K3. Pointwise complete add of two (rows, C) projective batches."""
+    if not _check(curve, (*p, *q), 2):
+        return map_padd_plain(curve, p, q)
+    C = p[0].shape[1]
+    out = _empty3(p[0])
+    if C:
+        _launch("map_padd", curve, (*p, *q), out, C)
+    return out
+
+
+def map_pdouble(curve: Curve, p, times: int = 1):
+    """K4. `times` doublings in a row, fused in one kernel; (rows, C)."""
+    if not _check(curve, p, 2):
+        return map_pdouble_plain(curve, p, times)
+    C = p[0].shape[1]
+    out = _empty3(p[0])
+    if C:
+        _launch("map_pdouble", curve, p, out, C, times)
+    return out
+
+
+def field_op_cuda(spec_name: str, op: str, a, b):
+    """Elementwise field op through csrc/field_check.cu (check kernel, not on
+    the prove path). a, b: (8, n) contiguous int32 words on the card."""
+    codes = {"mul": 0, "sqr": 1, "add": 2, "sub": 3, "neg": 4}
+    out = torch.empty_like(a)
+    with torch.cuda.device(a.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        fn = getattr(_build.lib(), f"kt_field_op_{spec_name}")
+        rc = fn(a.data_ptr(), b.data_ptr(), out.data_ptr(), codes[op], a.shape[1], stream)
+    _build.check(rc, f"field_op_{spec_name}")
+    return out

@@ -1,0 +1,167 @@
+"""K1-K4 plain versions (kogarashi_tpu_torch.ops.ec, the path a CPU tensor
+takes) against the JAX package's entry points `ec_pallas.map_padd /
+map_pdouble / scan_mixed / scan_proj (mode="xla")`, run eagerly inside
+`jax.disable_jit()`, and against pyref. G1 and G2 at C = 128, L = 2,
+including the identity, P + P and P + (-P). Points are compared decoded to
+affine, exactly. G1 here; G2 in test_torch_ec_g2.py (same checks)."""
+
+import random
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+from kogarashi_tpu import constants as C
+from kogarashi_tpu.curves import G1 as JG1, G2 as JG2
+from kogarashi_tpu.fields import mont_pallas as M
+from kogarashi_tpu.ops import ec_pallas as E
+from kogarashi_tpu.ops.msm_pallas import curve_k, decode_point
+from kogarashi_tpu_torch.curves import G1, G2, decode_points, encode_projective, prepare_points
+from kogarashi_tpu_torch.ops import ec
+
+torch.set_num_threads(2)  # the suite runs several workers side by side
+
+CURVES = {"g1": (G1, JG1), "g2": (G2, JG2)}
+NC, L = 128, 2
+
+
+def _pts(curve, seed, m):
+    rng = random.Random(seed)
+    g = curve.pyref_spec.generator
+    base = [rng.randrange(1, C.R) * g for _ in range(16)]
+    return [base[int(i)] for i in np.random.default_rng(seed).integers(0, 16, m)]
+
+
+def _enc13(jcurve, pts, projective=True):
+    """pyref affine points -> JAX 13-bit R' = 2^260 coordinate arrays (rows, m)."""
+    ck = curve_k(jcurve)
+    p, R, nl, ext = ck.K.p, ck.K.mont_r, ck.K.n, ck.ext
+
+    def comps(v):
+        return [v.v] if ext == 1 else [v.c0.v, v.c1.v]
+
+    zero, one = [0] * ext, [1] + [0] * (ext - 1)
+    coords = []
+    for name in ("x", "y", "z") if projective else ("x", "y"):
+        vals = []
+        for q in pts:
+            if q.is_infinity:
+                vals.append(one if name == "y" else zero)
+            else:
+                vals.append(one if name == "z" else comps(getattr(q, name)))
+        rows = np.array([[l for c in v for l in M.limbs13(c * R % p, nl)] for v in vals], np.int32)
+        coords.append(jax.numpy.asarray(rows.T))
+    return tuple(coords)
+
+
+def _pair_batches(curve):
+    """Lane pairs (P_j, Q_j) covering P+P, P+(-P), O+Q, P+O and random pairs."""
+    ps, qs = _pts(curve, 1, NC), _pts(curve, 2, NC)
+    ident = curve.pyref_spec.identity_affine()
+    qs[0] = ps[0]
+    qs[1] = -ps[1]
+    ps[2] = ident
+    qs[3] = ident
+    ps[4] = qs[4] = ident
+    return ps, qs
+
+
+def check_map_padd(name):
+    curve, jcurve = CURVES[name]
+    ps, qs = _pair_batches(curve)
+    got = decode_points(curve, ec.map_padd(curve, encode_projective(curve, ps), encode_projective(curve, qs)))
+    assert got == [a + b for a, b in zip(ps, qs)]
+    with jax.disable_jit():
+        want = E.map_padd(curve_k(jcurve), _enc13(jcurve, ps), _enc13(jcurve, qs), mode="xla")
+    assert got == decode_point(jcurve, want)
+
+
+def check_map_pdouble(name, times):
+    curve, jcurve = CURVES[name]
+    ps, _ = _pair_batches(curve)
+    got = decode_points(curve, ec.map_pdouble(curve, encode_projective(curve, ps), times=times))
+    assert got == [(1 << times) * a for a in ps]
+    with jax.disable_jit():
+        want = E.map_pdouble(curve_k(jcurve), _enc13(jcurve, ps), mode="xla", times=times)
+    assert got == decode_point(jcurve, want)
+
+
+def _scan_layout(t, rows):
+    """(rows, L*C) element-major -> (rows, L, C), chunk c = elements c*L .. c*L+L-1."""
+    return t.reshape(rows, NC, L).transpose(1, 2).contiguous()
+
+
+def _expected_scan(pts):
+    out = []
+    for c in range(NC):
+        acc = pts[0].spec.identity_affine()
+        for j in range(L):
+            acc = acc + pts[c * L + j]
+            out.append(acc)
+    return out  # chunk-major
+
+
+def _decode_scan(curve, S):
+    """(rows, L, C) projective scan outputs -> chunk-major decoded points."""
+    flat = tuple(s.transpose(1, 2).reshape(s.shape[0], -1) for s in S)
+    return decode_points(curve, flat)
+
+
+def _decode_scan_jax(jcurve, S):
+    flat = tuple(np.asarray(s).transpose(0, 2, 1).reshape(s.shape[0], -1) for s in S)
+    return decode_point(jcurve, flat)
+
+
+def check_scan_mixed(name):
+    curve, jcurve = CURVES[name]
+    pts = _pts(curve, 3, NC * L)
+    pts[5] = -pts[4]  # a chunk whose running sum returns to the identity
+    x, y, _ = prepare_points(curve, pts)
+    got = _decode_scan(curve, ec.scan_mixed(curve, _scan_layout(x, curve.rows), _scan_layout(y, curve.rows)))
+    assert got == _expected_scan(pts)
+    jx, jy = (np.asarray(a).reshape(-1, NC, L).transpose(0, 2, 1) for a in _enc13(jcurve, pts, False))
+    with jax.disable_jit():
+        want = E.scan_mixed(curve_k(jcurve), jax.numpy.asarray(jx), jax.numpy.asarray(jy), mode="xla")
+    assert got == _decode_scan_jax(jcurve, want)
+
+
+def check_scan_proj(name):
+    curve, jcurve = CURVES[name]
+    pts = _pts(curve, 4, NC * L)
+    pts[6] = curve.pyref_spec.identity_affine()
+    pts[9] = -pts[8]
+    S = ec.scan_proj(curve, *(_scan_layout(t, curve.rows) for t in encode_projective(curve, pts)))
+    got = _decode_scan(curve, S)
+    assert got == _expected_scan(pts)
+    j = tuple(jax.numpy.asarray(np.asarray(a).reshape(-1, NC, L).transpose(0, 2, 1)) for a in _enc13(jcurve, pts))
+    with jax.disable_jit():
+        want = E.scan_proj(curve_k(jcurve), *j, mode="xla")
+    assert got == _decode_scan_jax(jcurve, want)
+
+
+def test_map_padd_vs_jax_g1():
+    check_map_padd("g1")
+
+
+@pytest.mark.parametrize("times", [1, 3])
+def test_map_pdouble_vs_jax_g1(times):
+    check_map_pdouble("g1", times)
+
+
+def test_scan_mixed_vs_jax_g1():
+    check_scan_mixed("g1")
+
+
+def test_scan_proj_vs_jax_g1():
+    check_scan_proj("g1")
+
+
+def test_wrappers_check_inputs():
+    x = torch.zeros((8, 2, 4), dtype=torch.int32)
+    with pytest.raises(ValueError):
+        ec.scan_mixed(G2, x, x)  # G2 takes 16 rows
+    with pytest.raises(TypeError):
+        ec.scan_mixed(G1, x.to(torch.int64), x.to(torch.int64))
+    with pytest.raises(ValueError):
+        ec.scan_mixed(G1, x.transpose(1, 2), x.transpose(1, 2))
