@@ -4,20 +4,32 @@
     python3 chip_smoke.py
 
 It takes no options: every phase runs, at full size. Phases, one line each
-(a failure raises and the script exits non-zero):
+(a failure raises and the script exits non-zero); every timing is printed
+with the card's name and power limit beside it:
   env      torch / CUDA versions and the card (nvidia-smi name, power limit)
-  build    nvcc build of kogarashi_tpu_torch/csrc, ptxas registers/spills
+  build    nvcc build of kogarashi_tpu_torch/csrc (one process per source),
+           ptxas registers/spills, SASS instruction counts (cuobjdump)
   field    csrc/field.cuh against the plain field math on 2^16 Fq and Fr
-           elements (mul, sqr, add, sub, neg), exactly
-  ec       K1-K4 (scan_mixed, scan_proj, map_padd, map_pdouble) for G1 and
-           G2 against their plain versions at MSM shapes, exactly, timed
+           elements (mul, sqr, add, sub, neg), exactly, every pair of the
+           carry-chain edge values (0, 1, p-1, p-2, R mod p, p's top word)
+           among them
   msm      2^20 G1 MSM (bench.py's workload, c = 16) and a 2^16 G2 MSM
-           against a host oracle; median of 3 with the host copy inside
+           against a host oracle; median of 3 with the host copy inside; the
+           G1 MSM's scan_proj (K2) shapes are recorded
+  ec       K1-K4 (scan_mixed, scan_proj, map_padd, map_pdouble) for G1 and
+           G2 against their plain versions at the main path's shapes
+           (K2 at the two largest recorded shapes and at the scan's), exactly,
+           timed beside their bound (ops/ec.py `bound_ms`, at the SM clock
+           nvidia-smi reads under load); then the IMAD and IMAD.WIDE issue
+           rates, measured (csrc/imad_probe.cu), beside the rate the bound
+           assumes
   groth16  SquareChainCircuit(2^20): setup -> prove -> verify on the card,
            a tampered public input rejected; the kernel launch counters of
            this run must all be > 0
-The last two lines are the kernels' JSON record and
-{"ok": true, "device": {...}}. Without a CUDA device it exits non-zero.
+The last lines are the kernels' JSON record (name, route, source, replaces,
+launches, max_abs_err, ms, plain_ms, bound_ms, bound_by, bound_share,
+library_ms, shape, times, and for K2 and K4 their other shapes), the card,
+and {"ok": true, "device": {...}}. Without a CUDA device it exits non-zero.
 """
 
 from __future__ import annotations
@@ -47,15 +59,13 @@ def log(phase: str, msg: str) -> None:
     print(f"[{phase}] {msg}", flush=True)
 
 
-def nvidia_smi() -> str:
-    return subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True,
-    ).stdout.strip().splitlines()[0]
+def smi(query: str, fmt: str = "csv,noheader,nounits") -> str:
+    return subprocess.run(["nvidia-smi", f"--query-gpu={query}", f"--format={fmt}"],
+                          capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
 
 
-def cuda_ms(fn, reps: int) -> float:
-    """Mean device milliseconds of fn() over reps launches (after a warm-up)."""
+def cuda_ms(fn, reps: int = 3) -> float:
+    """Mean device milliseconds of fn() over `reps` calls, after one warm-up."""
     import torch
 
     fn()
@@ -67,6 +77,38 @@ def cuda_ms(fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def sm_clock_under_load(fn, seconds: float = 1.0) -> float:
+    """SM clock (Hz) that nvidia-smi reads while a burst of fn() runs."""
+    import torch
+
+    t = cuda_ms(fn, reps=1)
+    for _ in range(max(1, int(seconds * 1e3 / max(t, 1e-3)))):
+        fn()
+    time.sleep(0.2)
+    mhz = float(smi("clocks.sm"))
+    torch.cuda.synchronize()
+    return mhz * 1e6
+
+
+def scan_proj_shapes(fn) -> list:
+    """The shapes of the scan_proj (K2) launches fn() makes, largest first."""
+    from kogarashi_tpu_torch.ops import ec
+
+    seen = []
+    real = ec.scan_proj
+
+    def spy(curve, *xyz):
+        seen.append(tuple(xyz[0].shape))
+        return real(curve, *xyz)
+
+    ec.scan_proj = spy
+    try:
+        fn()
+    finally:
+        ec.scan_proj = real
+    return sorted(set(seen), key=lambda s: -s[1] * s[2])
 
 
 def timed(fn):
@@ -89,7 +131,16 @@ def max_abs_err(a, b) -> int:
                for x, y in zip(a, b))
 
 
-def phase_field(dev, n: int = 1 << 16) -> None:
+def edge_values(p: int) -> list[int]:
+    """Carry-chain edge cases: 0, 1, p - 1, p - 2, R mod p, and values below
+    p whose top word is p's top word."""
+    top, low = p >> 224, p & ((1 << 224) - 1)
+    rng = random.Random(p & 0xFFFF)
+    return [0, 1, p - 1, p - 2, (1 << 256) % p, top << 224,
+            *((top << 224) | rng.randrange(low) for _ in range(8))]
+
+
+def phase_field(dev, card: str, n: int = 1 << 16) -> None:
     import numpy as np
     import torch
 
@@ -99,13 +150,16 @@ def phase_field(dev, n: int = 1 << 16) -> None:
 
     rng = np.random.default_rng(7)
     for spec, name in ((FQ, "fq"), (FR, "fr")):
-        def draw():
+        edges = edge_values(spec.p)
+        pairs = [(x, y) for x in edges for y in edges]  # every pair, (p-1)(p-1) among them
+
+        def draw(first):
             raw = rng.integers(0, 1 << 32, size=(n, 8), dtype=np.uint64)
             vals = [int.from_bytes(r.astype("<u4").tobytes(), "little") % spec.p for r in raw]
-            vals[:3] = [0, 1, spec.p - 1]
+            vals[: len(first)] = first
             return torch.from_numpy(spec.encode(vals)).to(dev)
 
-        a, b = draw(), draw()
+        a, b = draw([x for x, _ in pairs]), draw([y for _, y in pairs])
         for op in ("mul", "sqr", "add", "sub", "neg"):
             got = field_op_cuda(name, op, a, b)
             args = {"mul": (a, b), "sqr": (a,), "add": (a, b), "sub": (a, b), "neg": (a,)}[op]
@@ -113,7 +167,8 @@ def phase_field(dev, n: int = 1 << 16) -> None:
             torch.cuda.synchronize()
             if not torch.equal(got, want):
                 raise AssertionError(f"field {name} {op}: CUDA differs from the plain version")
-        log("field", f"{spec.name}: mul sqr add sub neg exact on {n} elements (incl. 0, 1, p-1)")
+        log("field", f"{spec.name}: mul sqr add sub neg exact on {n} elements, the first "
+                     f"{len(pairs)} every pair of the edge values (0, 1, p-1, p-2, R mod p, p's top word)")
 
 
 def random_points(curve, m: int, seed: int, dev):
@@ -131,12 +186,14 @@ def random_points(curve, m: int, seed: int, dev):
     return proj, to_affine(curve, proj)
 
 
-def phase_ec(dev, log_n: int, windows: int) -> dict:
-    """K1-K4 against their plain versions. The scans run at the shape the
-    2^log_n MSM gives them (all windows side by side: L = scan depth,
-    C = windows * n / L, each window a permutation of the same points); the
-    maps at 2^log_n lanes (the setup's fixed-base adds); map_pdouble with
-    t = 16 at the window combine's one lane, and also timed at 2^16 lanes."""
+def phase_ec(dev, card: str, log_n: int, windows: int, k2_shapes) -> dict:
+    """K1-K4 against their plain versions, exactly, and timed, at the shapes
+    of the main path: the scans at the 2^log_n MSM's (all windows side by
+    side: L = scan depth, C = windows * n / L, each window a permutation of
+    the same points); K2 also at `k2_shapes`, those the MSM gave it; the maps
+    at 2^log_n lanes (setup's fixed-base adds); map_pdouble with t = 16 at the
+    window combine's one lane and at 2^16 lanes. Each entry's bound is
+    ops.ec.bound_ms at the SM clock nvidia-smi reads under load."""
     import torch
 
     from kogarashi_tpu_torch.curves import G1, G2
@@ -147,7 +204,7 @@ def phase_ec(dev, log_n: int, windows: int) -> dict:
     L = scan_depth(windows * n)
     C = windows * n // L
     gen = torch.Generator(device="cpu").manual_seed(5)
-    record = {}
+    record, clock = {}, None
     for curve, seed in ((G1, 1), (G2, 2)):
         rows = curve.rows
         proj, (ax, ay, _) = random_points(curve, n, seed, dev)
@@ -155,6 +212,10 @@ def phase_ec(dev, log_n: int, windows: int) -> dict:
 
         def scan_layout(t):
             return t[:, perms].reshape(rows, L, C).contiguous()
+
+        def cut(ts, shape):
+            return tuple(t.reshape(rows, -1)[:, : shape[1] * shape[2]].reshape(rows, *shape[1:]).contiguous()
+                         for t in ts)
 
         scan_aff = tuple(scan_layout(t) for t in (ax, ay))
         scan_prj = tuple(scan_layout(t) for t in proj)
@@ -169,42 +230,57 @@ def phase_ec(dev, log_n: int, windows: int) -> dict:
             q[k][:, 3] = ident[k][:, 0]
         pd = tuple(t[:, :1].contiguous() for t in p)
         pd_wide = tuple(t[:, : 1 << 16].contiguous() for t in p)
+        k2 = [(rows, *s[1:]) for s in k2_shapes]
+        # kernel -> [(shape, times, kernel call, plain call)]; the first is the entry's
         cases = {
-            "scan_mixed": (lambda: ec.scan_mixed(curve, *scan_aff),
-                           lambda: ec.scan_mixed_plain(curve, *scan_aff)),
-            "scan_proj": (lambda: ec.scan_proj(curve, *scan_prj),
-                          lambda: ec.scan_proj_plain(curve, *scan_prj)),
-            "map_padd": (lambda: ec.map_padd(curve, p, q),
-                         lambda: ec.map_padd_plain(curve, p, q)),
-            "map_pdouble": (lambda: ec.map_pdouble(curve, pd, times=16),
-                            lambda: ec.map_pdouble_plain(curve, pd, times=16)),
+            "scan_mixed": [((rows, L, C), 1, lambda: ec.scan_mixed(curve, *scan_aff),
+                            lambda: ec.scan_mixed_plain(curve, *scan_aff))],
+            "scan_proj": [(s, 1, lambda a=cut(scan_prj, s): ec.scan_proj(curve, *a),
+                           lambda a=cut(scan_prj, s): ec.scan_proj_plain(curve, *a)) for s in k2]
+                         + [((rows, L, C), 1, lambda: ec.scan_proj(curve, *scan_prj),
+                             lambda: ec.scan_proj_plain(curve, *scan_prj))],
+            "map_padd": [((rows, n), 1, lambda: ec.map_padd(curve, p, q),
+                          lambda: ec.map_padd_plain(curve, p, q))],
+            "map_pdouble": [((rows, 1), 16, lambda: ec.map_pdouble(curve, pd, times=16),
+                             lambda: ec.map_pdouble_plain(curve, pd, times=16)),
+                            ((rows, 1 << 16), 16, lambda: ec.map_pdouble(curve, pd_wide, times=16),
+                             lambda: ec.map_pdouble_plain(curve, pd_wide, times=16))],
         }
-        for kname, (kern, plain) in cases.items():
-            want, plain_ms = timed(plain)
-            got, _ = timed(kern)
-            err = max_abs_err(got, want)
-            if err or not all(torch.equal(g, w) for g, w in zip(got, want)):
-                raise AssertionError(f"{kname}_{curve.name}: kernel differs from plain version")
-            ms = cuda_ms(kern, reps=3)
-            del want, got
-            record[f"{kname}_{curve.name}"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
-            log("ec", f"{kname}_{curve.name}: exact; kernel {ms:.3f} ms, plain {plain_ms:.3f} ms")
-        want, plain_ms = timed(lambda: ec.map_pdouble_plain(curve, pd_wide, times=16))
-        got, _ = timed(lambda: ec.map_pdouble(curve, pd_wide, times=16))
-        if max_abs_err(got, want):
-            raise AssertionError(f"map_pdouble_{curve.name} at 2^16 lanes: kernel differs")
-        ms = cuda_ms(lambda: ec.map_pdouble(curve, pd_wide, times=16), reps=3)
-        log("ec", f"map_pdouble_{curve.name} at 2^16 lanes: exact; kernel {ms:.3f} ms, plain {plain_ms:.3f} ms")
-        del scan_aff, scan_prj, p, q, pd, pd_wide, proj
+        for kname, runs in cases.items():
+            measured = []
+            for shape, times, kern, plain in runs:
+                want, plain_ms = timed(plain)
+                got, _ = timed(kern)
+                err = max_abs_err(got, want)
+                if err or not all(torch.equal(g, w) for g, w in zip(got, want)):
+                    raise AssertionError(f"{kname}_{curve.name} at {shape}: kernel differs from plain version")
+                del want, got
+                if clock is None:
+                    clock = sm_clock_under_load(kern)
+                    log("ec", f"SM clock under load {clock / 1e6:.0f} MHz ({card})")
+                ms = cuda_ms(kern)
+                bound, by = ec.bound_ms(kname, curve, shape, clock, times)
+                measured.append(dict(shape=list(shape), times=times, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                                     bound_ms=bound, bound_by=by, bound_share=bound / ms))
+                log("ec", f"{kname}_{curve.name} {tuple(shape)} t={times}: exact; kernel {ms:.4f} ms, "
+                          f"bound {bound:.4f} ms ({by}), share {bound / ms:.3f}, plain {plain_ms:.3f} ms ({card})")
+            rec = dict(measured[0], library_ms=None)
+            if len(measured) > 1:
+                rec["other_shapes"] = measured[1:]
+            record[f"{kname}_{curve.name}"] = rec
+        del scan_aff, scan_prj, p, q, pd, pd_wide, proj, cases
         torch.cuda.empty_cache()
-    log("ec", f"shapes: scans (rows, {L}, {C}), map_padd (rows, {n}), "
-              f"map_pdouble (rows, 1) t=16; rows 8 (G1) / 16 (G2)")
+    rates = ec.issue_rates(dev)
+    log("ec", f"issue rates per SM per clock (csrc/imad_probe.cu): IMAD {rates['imad']:.2f}, "
+              f"IMAD.WIDE in carry chains {rates['imad_wide']:.2f} (= {2 * rates['imad_wide']:.2f} "
+              f"multiply-adds); bound_ms assumes {ec.MULADD_PER_SM_CLOCK} multiply-adds ({card})")
     return record
 
 
-def msm_check(curve, log_n: int, c, seed_pts: int, seed_sc: int, dev, reps: int = 3):
+def msm_check(curve, log_n: int, c, seed_pts: int, seed_sc: int, dev, card: str, reps: int = 3):
     """bench.py's workload: 64 distinct bases tiled to 2^log_n, host oracle
-    by effective scalar per base. Returns (median s, point-adds/s)."""
+    by effective scalar per base. Returns (median s, point-adds/s, the
+    scan_proj shapes the MSM launched, largest first)."""
     import numpy as np
     import torch
 
@@ -228,7 +304,8 @@ def msm_check(curve, log_n: int, c, seed_pts: int, seed_sc: int, dev, reps: int 
     expected = (sum((e % r) * k for e, k in zip(eff, dk)) % r) * g
 
     c = c or default_window(n)
-    msm(curve, x, y, inf, scalars, c=c)  # first call: allocator and caches warm
+    # first call: allocator and caches warm, and the K2 shapes recorded
+    k2_shapes = scan_proj_shapes(lambda: msm(curve, x, y, inf, scalars, c=c))
     times = []
     for _ in range(reps):
         torch.cuda.synchronize()
@@ -241,11 +318,12 @@ def msm_check(curve, log_n: int, c, seed_pts: int, seed_sc: int, dev, reps: int 
     med = statistics.median(times)
     adds = n * -(-256 // c) / med
     log("msm", f"{curve.name} n=2^{log_n} c={c}: oracle PASS; median {med:.4f} s of "
-               f"{[round(t, 4) for t in times]}; {adds:.4e} point-adds/s")
-    return med, adds
+               f"{[round(t, 4) for t in times]}; {adds:.4e} point-adds/s ({card})")
+    log("msm", f"{curve.name} n=2^{log_n}: scan_proj shapes {k2_shapes}")
+    return med, adds, k2_shapes
 
 
-def phase_groth16(dev, log2_m: int) -> dict:
+def phase_groth16(dev, card: str, log2_m: int) -> dict:
     import torch
 
     from kogarashi_tpu_torch.groth16 import SquareChainCircuit, setup
@@ -277,7 +355,7 @@ def phase_groth16(dev, log2_m: int) -> dict:
     if missing:
         raise AssertionError(f"kernels not launched on the main path: {missing}")
     log("groth16", f"SquareChainCircuit(2^{log2_m}): setup {t_setup:.3f} s, prove {t_prove:.3f} s, "
-                   f"verify {t_verify:.3f} s; verify True, tampered input rejected")
+                   f"verify {t_verify:.3f} s; verify True, tampered input rejected ({card})")
     log("groth16", f"launches: {json.dumps(launches)}")
     return launches
 
@@ -293,7 +371,7 @@ def main() -> int:
         return 1
     sys.path.insert(0, str(ROOT))
     dev = torch.device("cuda", 0)
-    card = nvidia_smi()
+    card = smi("name,power.limit", "csv,noheader")
     log("env", f"python {sys.version.split()[0]}, torch {torch.__version__}, CUDA {torch.version.cuda}, "
                f"devices {torch.cuda.device_count()}")
     print(card, flush=True)
@@ -303,17 +381,19 @@ def main() -> int:
     t0 = time.perf_counter()
     path = _build.build()
     _build.lib()
-    log("build", f"nvcc sm_90a in {time.perf_counter() - t0:.1f} s -> {path}")
+    log("build", f"nvcc sm_90a, one process per source, in {time.perf_counter() - t0:.1f} s -> {path} ({card})")
     for line in _build.ptxas_report():
         log("build", line)
+    for line in _build.sass_report():
+        log("build", f"sass {line}")
 
     from kogarashi_tpu_torch.curves import G1, G2
 
-    phase_field(dev)
-    record = phase_ec(dev, LOG2_MSM, windows=16)
-    msm_check(G1, LOG2_MSM, 16, 0xBE7C4, 1, dev)
-    msm_check(G2, 16, None, 0xBE7C5, 2, dev)
-    launches = phase_groth16(dev, LOG2_CONSTRAINTS)
+    phase_field(dev, card)
+    _, _, k2_shapes = msm_check(G1, LOG2_MSM, 16, 0xBE7C4, 1, dev, card)
+    msm_check(G2, 16, None, 0xBE7C5, 2, dev, card)
+    record = phase_ec(dev, card, LOG2_MSM, windows=16, k2_shapes=k2_shapes[:2])
+    launches = phase_groth16(dev, card, LOG2_CONSTRAINTS)
 
     kernels = []
     for key, rec in record.items():

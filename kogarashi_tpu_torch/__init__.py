@@ -2,7 +2,9 @@
 
 A port of `kogarashi_tpu` (JAX + Pallas) to PyTorch with CUDA C++ kernels for
 Hopper (sm_90a). `kogarashi_tpu` stays the reference; this package imports
-only its JAX-free modules (`constants`, `errors`, `utils`, `pyref`, `r1cs`).
+nothing of it and keeps its own copies of what it uses (`constants`,
+`errors`, `pyref`, `r1cs`). Its entry points run on the card unless a caller
+passes `device="cpu"` (`devices.py`).
 
 Data layout, everywhere: a field element is 8 little-endian 32-bit words in
 Montgomery form with R = 2^256, stored limb-major as int32 tensors holding

@@ -13,24 +13,45 @@
 //
 // Layout: coordinates are int32 word planes, limb-major. Scans take
 // (W, L, C) arrays (word k, scan position j, chunk c at k*L*C + j*C + c);
-// maps take (W, C). W = 8 for G1, 16 for G2.
+// maps take (W, C). W = 8 for G1, 16 for G2. Thread c touches word k of
+// lane c at k*plane + c, so each of a warp's loads and stores covers 32
+// neighbouring words (128 bytes): every coordinate access is coalesced.
 //
-// Design: the TPU scan carried its accumulator across a sequential grid in
-// VMEM scratch. Blocks on Hopper run in no order, so each chunk column c is
-// one thread that loops over L with the accumulator in registers; thread c
-// reads word k of position j at k*L*C + j*C + c, so a warp reads 32
-// neighbouring words per load. The kernel masks its own ragged edge (no
-// (8, 128) tiling, no L blocking).
+// What bounds them (ops/ec.py `bound_ms` computes it per shape): 32-bit
+// integer multiply-adds. A Montgomery multiply is 264 of them (field.cuh);
+// a G1 madd is 11 multiplies, padd 12, pdouble 8 (the b3 products of G1 are
+// adds, below); an Fq2 multiply is 3 base multiplies and G2's b3 products
+// stay multiplies. At NVIDIA's 64 per SM per clock on 132 SMs (csrc/
+// imad_probe.cu measures what the card issues) the card's floor is far above
+// its memory floor: K1 G1 at (8, 128, 131072) is 2.9 ms of multiply-adds
+// against 0.8 ms of bytes.
 //
-// What bounds it on an H100: integer multiply throughput (a G1 padd is 12
-// Montgomery multiplies, about 2k IMADs; a G2 padd 3x that) and registers,
-// which cap how many threads an SM holds. Memory traffic is 3-6 coordinate
-// reads and 3 writes per add, far below what the card streams. ptxas -v
-// (CUDA 12.8, sm_90a), registers per thread, no spills anywhere:
-//   G1: scan_mixed 108, scan_proj 136, map_padd 112, map_pdouble 92;
-//   G2: scan_mixed 230, scan_proj 240, map_padd 232, map_pdouble 198
-// (G2 calls one non-inlined base multiply, see field.cuh). chip_smoke.py's
-// build phase prints these counts for the build it makes.
+// b3: G1 has b = 3, so b3 = 3b = 9 and 9x = 8x + x is three modular
+// doublings and one add (`G1::mul_b3`), the same canonical element as the
+// multiply by 9R it replaces. G2's b3 is a general Fq2 constant.
+//
+// Per kernel: design, and ptxas -v (nvcc 12.9, sm_90a) registers per thread
+// as G1 / G2; no kernel spills, no stack. chip_smoke.py's build phase prints
+// them for the build it makes.
+//   K1 scan_mixed (replaces `_scan_call(mixed=True)`): one thread per chunk
+//     column, the accumulator in registers over L steps; 11 (G1) or 39 (G2)
+//     multiplies a step. Step j + 1's affine point (2W words) is fetched with
+//     cp.async into a two-stage ring in shared memory, [stage][word][thread]
+//     (no bank conflicts), while step j's madd runs, so the load does not
+//     stall the warp (a small gain, PERF.md). All L prefix sums are written: the
+//     bucket-endpoint gather (ops/msm.py) reads them. 150 / 232 registers, so
+//     3 / 2 blocks of 128 per SM: 1024 blocks at C = 131072 are 2.59 / 3.88
+//     waves. SASS (G1): 2800 instructions a step, 1326 of them IMAD.WIDE
+//     (two multiply-adds each) and 182 other IMAD.
+//   K2 scan_proj (replaces `_scan_call(mixed=False)`): K1's loop with a
+//     projective point and padd (12 / 42 multiplies), no prefetch.
+//     153 / 252 registers.
+//   K3 map_padd (replaces `_map_call("padd")`): one thread per lane, six
+//     coordinate loads, padd (12 / 42 multiplies), three stores. 128 / 248
+//     registers, 4 / 2 blocks per SM; (rows, 2^20) is 8192 blocks, 15.5 / 31
+//     waves. SASS (G1): 3056 instructions.
+//   K4 map_pdouble (replaces `_map_call("pdouble:t")`): `times` doublings per
+//     thread (8 / 25 multiplies each). 108 / 198 registers.
 
 #include <cuda_runtime.h>
 
@@ -38,26 +59,41 @@
 
 namespace kt {
 
+constexpr int kThreads = 128;
+
+// Blocks of kThreads that one SM must be able to hold (__launch_bounds__'s
+// second argument), so registers per thread stay <= 65536 / (128 * blocks).
+// Maps (K3, K4): G1 4 blocks, <= 128 registers, 16 warps per SM; G2 2 blocks
+// (<= 255 registers), 8 warps. Scans (K1, K2): 1, no cap, because at G1's
+// 128-register cap both spilled; they take the registers they need and the
+// SM holds what fits. Measured (PERF.md): between 12 and 20 warps per SM,
+// and with the last of the scan's 1024 blocks' waves 59% to 94% full, K1
+// and K3 hardly move.
+
 template <class A>
 struct Proj {
   typename A::E x, y, z;
 };
 
-// Curve constants: b3 = 3b in Montgomery form.
 struct G1 {
   typedef Alg1<Fq> A;
-  __device__ __forceinline__ static A::E b3() {
-    A::E r;
-    constexpr u32 v[8] = {0x410d7ff7u, 0xf60647ceu, 0xd31bd011u, 0x2f3d6f4du,
-                          0x3940c6d1u, 0x2943337eu, 0xa7e39857u, 0x1d9598e8u};
-#pragma unroll
-    for (int j = 0; j < 8; j++) r.v[j] = v[j];
-    return r;
+  static constexpr int W = 8;
+  static constexpr int kMinBlocks = 4;
+  static constexpr int kScanMinBlocks = 1;
+  // 9x = 8x + x
+  __device__ __forceinline__ static A::E mul_b3(const A::E& x) {
+    A::E x2 = A::add(x, x);
+    A::E x4 = A::add(x2, x2);
+    return A::add(A::add(x4, x4), x);
   }
 };
 
 struct G2 {
   typedef Alg2<Fq> A;
+  static constexpr int W = 16;
+  static constexpr int kMinBlocks = 2;
+  static constexpr int kScanMinBlocks = 1;
+  // b3 = 3b in Montgomery form
   __device__ __forceinline__ static A::E b3() {
     A::E r;
     constexpr u32 v[16] = {0xb62e0d6au, 0x3baa927cu, 0xd1b664fdu, 0xd71e7c52u,
@@ -71,6 +107,7 @@ struct G2 {
     }
     return r;
   }
+  __device__ __forceinline__ static A::E mul_b3(const A::E& x) { return A::mul(x, b3()); }
 };
 
 template <class Cv>
@@ -89,7 +126,6 @@ __device__ __forceinline__ Proj<typename Cv::A> padd(const Proj<typename Cv::A>&
                                                      const Proj<typename Cv::A>& q) {
   typedef typename Cv::A A;
   typedef typename A::E E;
-  const E b3 = Cv::b3();
   E t0 = A::mul(p.x, q.x);
   E t1 = A::mul(p.y, q.y);
   E t2 = A::mul(p.z, q.z);
@@ -97,10 +133,10 @@ __device__ __forceinline__ Proj<typename Cv::A> padd(const Proj<typename Cv::A>&
   E t4 = A::sub(A::sub(A::mul(A::add(p.y, p.z), A::add(q.y, q.z)), t1), t2);
   E t5 = A::sub(A::sub(A::mul(A::add(p.x, p.z), A::add(q.x, q.z)), t0), t2);
   E t6 = A::add(A::add(t0, t0), t0);
-  E t2b3 = A::mul(t2, b3);
+  E t2b3 = Cv::mul_b3(t2);
   E zz = A::add(t1, t2b3);
   E tt = A::sub(t1, t2b3);
-  E y5 = A::mul(t5, b3);
+  E y5 = Cv::mul_b3(t5);
   Proj<A> r;
   r.x = A::sub(A::mul(t3, tt), A::mul(t4, y5));
   r.y = A::add(A::mul(y5, t6), A::mul(tt, zz));
@@ -115,17 +151,16 @@ __device__ __forceinline__ Proj<typename Cv::A> madd(const Proj<typename Cv::A>&
                                                      const typename Cv::A::E& y2) {
   typedef typename Cv::A A;
   typedef typename A::E E;
-  const E b3 = Cv::b3();
   E t0 = A::mul(p.x, x2);
   E t1 = A::mul(p.y, y2);
   E t3 = A::sub(A::sub(A::mul(A::add(x2, y2), A::add(p.x, p.y)), t0), t1);
   E t4 = A::add(A::mul(y2, p.z), p.y);
   E t5 = A::add(A::mul(x2, p.z), p.x);
   E t6 = A::add(A::add(t0, t0), t0);
-  E t2 = A::mul(b3, p.z);
+  E t2 = Cv::mul_b3(p.z);
   E zz = A::add(t1, t2);
   E tt = A::sub(t1, t2);
-  E y5 = A::mul(b3, t5);
+  E y5 = Cv::mul_b3(t5);
   Proj<A> r;
   r.x = A::sub(A::mul(t3, tt), A::mul(t4, y5));
   r.y = A::add(A::mul(y5, t6), A::mul(tt, zz));
@@ -138,13 +173,12 @@ template <class Cv>
 __device__ __forceinline__ Proj<typename Cv::A> pdouble(const Proj<typename Cv::A>& p) {
   typedef typename Cv::A A;
   typedef typename A::E E;
-  const E b3 = Cv::b3();
   E t0 = A::sqr(p.y);
   E z8 = A::add(t0, t0);
   z8 = A::add(z8, z8);
   z8 = A::add(z8, z8);  // 8 y^2
   E t1 = A::mul(p.y, p.z);
-  E t2 = A::mul(A::sqr(p.z), b3);
+  E t2 = Cv::mul_b3(A::sqr(p.z));
   E x3 = A::mul(t2, z8);
   E y3 = A::add(t0, t2);
   Proj<A> r;
@@ -158,27 +192,78 @@ __device__ __forceinline__ Proj<typename Cv::A> pdouble(const Proj<typename Cv::
   return r;
 }
 
-// K1 / K2: per-chunk inclusive prefix sums. One thread per chunk column.
-template <class Cv, bool MIXED>
-__global__ void scan_kernel(const u32* __restrict__ x, const u32* __restrict__ y,
-                            const u32* __restrict__ z, u32* __restrict__ ox,
-                            u32* __restrict__ oy, u32* __restrict__ oz, int L, int C) {
+// 4-byte asynchronous copy global -> shared, and its group fences.
+__device__ __forceinline__ void cp_async4(u32* smem, const u32* gmem) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;" ::"r"(s), "l"(gmem) : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
+}
+
+// K1: per-chunk inclusive prefix sums of affine points, prefetched one step
+// ahead through a two-stage shared-memory ring.
+template <class Cv>
+__global__ void __launch_bounds__(kThreads, Cv::kScanMinBlocks)
+    scan_mixed_kernel(const u32* __restrict__ x, const u32* __restrict__ y,
+                      u32* __restrict__ ox, u32* __restrict__ oy, u32* __restrict__ oz,
+                      int L, int C) {
   typedef typename Cv::A A;
-  const int c = blockIdx.x * blockDim.x + threadIdx.x;
+  constexpr int W = Cv::W;
+  __shared__ u32 ring[2][2 * W][kThreads];
+  const int c = blockIdx.x * kThreads + threadIdx.x;
+  if (c >= C) return;
+  const size_t plane = (size_t)L * C;
+  auto fetch = [&](int j) {
+    const size_t off = (size_t)j * C + c;
+    u32(*slot)[kThreads] = ring[j & 1];
+#pragma unroll
+    for (int k = 0; k < W; k++) {
+      cp_async4(&slot[k][threadIdx.x], x + k * plane + off);
+      cp_async4(&slot[W + k][threadIdx.x], y + k * plane + off);
+    }
+    cp_async_commit();
+  };
+  fetch(0);
+  Proj<A> acc = identity<Cv>();
+  for (int j = 0; j < L; j++) {
+    if (j + 1 < L) {
+      fetch(j + 1);
+      cp_async_wait<1>();  // step j's copies are done; step j + 1's may fly
+    } else {
+      cp_async_wait<0>();
+    }
+    const u32* slot = &ring[j & 1][0][threadIdx.x];
+    acc = madd<Cv>(acc, A::load(slot, kThreads, 0), A::load(slot + W * kThreads, kThreads, 0));
+    const size_t off = (size_t)j * C + c;
+    A::store(ox, plane, off, acc.x);
+    A::store(oy, plane, off, acc.y);
+    A::store(oz, plane, off, acc.z);
+  }
+}
+
+// K2: per-chunk inclusive prefix sums of projective points.
+template <class Cv>
+__global__ void __launch_bounds__(kThreads, Cv::kScanMinBlocks)
+    scan_proj_kernel(const u32* __restrict__ x, const u32* __restrict__ y,
+                     const u32* __restrict__ z, u32* __restrict__ ox, u32* __restrict__ oy,
+                     u32* __restrict__ oz, int L, int C) {
+  typedef typename Cv::A A;
+  const int c = blockIdx.x * kThreads + threadIdx.x;
   if (c >= C) return;
   const size_t plane = (size_t)L * C;
   Proj<A> acc = identity<Cv>();
   for (int j = 0; j < L; j++) {
     const size_t off = (size_t)j * C + c;
-    if (MIXED) {
-      acc = madd<Cv>(acc, A::load(x, plane, off), A::load(y, plane, off));
-    } else {
-      Proj<A> q;
-      q.x = A::load(x, plane, off);
-      q.y = A::load(y, plane, off);
-      q.z = A::load(z, plane, off);
-      acc = padd<Cv>(acc, q);
-    }
+    Proj<A> q;
+    q.x = A::load(x, plane, off);
+    q.y = A::load(y, plane, off);
+    q.z = A::load(z, plane, off);
+    acc = padd<Cv>(acc, q);
     A::store(ox, plane, off, acc.x);
     A::store(oy, plane, off, acc.y);
     A::store(oz, plane, off, acc.z);
@@ -187,13 +272,13 @@ __global__ void scan_kernel(const u32* __restrict__ x, const u32* __restrict__ y
 
 // K3: pointwise complete add of two (W, C) batches.
 template <class Cv>
-__global__ void padd_kernel(const u32* __restrict__ x1, const u32* __restrict__ y1,
-                            const u32* __restrict__ z1, const u32* __restrict__ x2,
-                            const u32* __restrict__ y2, const u32* __restrict__ z2,
-                            u32* __restrict__ ox, u32* __restrict__ oy,
-                            u32* __restrict__ oz, int C) {
+__global__ void __launch_bounds__(kThreads, Cv::kMinBlocks)
+    padd_kernel(const u32* __restrict__ x1, const u32* __restrict__ y1,
+                const u32* __restrict__ z1, const u32* __restrict__ x2,
+                const u32* __restrict__ y2, const u32* __restrict__ z2,
+                u32* __restrict__ ox, u32* __restrict__ oy, u32* __restrict__ oz, int C) {
   typedef typename Cv::A A;
-  const int c = blockIdx.x * blockDim.x + threadIdx.x;
+  const int c = blockIdx.x * kThreads + threadIdx.x;
   if (c >= C) return;
   Proj<A> p, q;
   p.x = A::load(x1, C, c);
@@ -210,12 +295,12 @@ __global__ void padd_kernel(const u32* __restrict__ x1, const u32* __restrict__ 
 
 // K4: `times` complete doublings in a row, fused.
 template <class Cv>
-__global__ void pdouble_kernel(const u32* __restrict__ x, const u32* __restrict__ y,
-                               const u32* __restrict__ z, u32* __restrict__ ox,
-                               u32* __restrict__ oy, u32* __restrict__ oz, int C,
-                               int times) {
+__global__ void __launch_bounds__(kThreads, Cv::kMinBlocks)
+    pdouble_kernel(const u32* __restrict__ x, const u32* __restrict__ y,
+                   const u32* __restrict__ z, u32* __restrict__ ox, u32* __restrict__ oy,
+                   u32* __restrict__ oz, int C, int times) {
   typedef typename Cv::A A;
-  const int c = blockIdx.x * blockDim.x + threadIdx.x;
+  const int c = blockIdx.x * kThreads + threadIdx.x;
   if (c >= C) return;
   Proj<A> p;
   p.x = A::load(x, C, c);
@@ -227,8 +312,6 @@ __global__ void pdouble_kernel(const u32* __restrict__ x, const u32* __restrict_
   A::store(oz, C, c, p.z);
 }
 
-constexpr int kThreads = 128;
-
 inline int blocks(int C) { return (C + kThreads - 1) / kThreads; }
 
 }  // namespace kt
@@ -238,14 +321,14 @@ using namespace kt;
 #define KT_EC_ENTRIES(NAME, CV)                                                         \
   extern "C" int kt_scan_mixed_##NAME(const void* x, const void* y, void* ox, void* oy, \
                                       void* oz, int L, int C, void* stream) {           \
-    scan_kernel<CV, true><<<blocks(C), kThreads, 0, (cudaStream_t)stream>>>(            \
-        (const u32*)x, (const u32*)y, nullptr, (u32*)ox, (u32*)oy, (u32*)oz, L, C);     \
+    scan_mixed_kernel<CV><<<blocks(C), kThreads, 0, (cudaStream_t)stream>>>(            \
+        (const u32*)x, (const u32*)y, (u32*)ox, (u32*)oy, (u32*)oz, L, C);              \
     return (int)cudaGetLastError();                                                     \
   }                                                                                     \
   extern "C" int kt_scan_proj_##NAME(const void* x, const void* y, const void* z,       \
                                      void* ox, void* oy, void* oz, int L, int C,        \
                                      void* stream) {                                    \
-    scan_kernel<CV, false><<<blocks(C), kThreads, 0, (cudaStream_t)stream>>>(           \
+    scan_proj_kernel<CV><<<blocks(C), kThreads, 0, (cudaStream_t)stream>>>(             \
         (const u32*)x, (const u32*)y, (const u32*)z, (u32*)ox, (u32*)oy, (u32*)oz, L,   \
         C);                                                                             \
     return (int)cudaGetLastError();                                                     \

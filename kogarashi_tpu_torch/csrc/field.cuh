@@ -9,27 +9,58 @@
 // Layout: an element is 8 little-endian 32-bit words, Montgomery form with
 // R = 2^256 (the reference's radix). Fq2 = Fq[u]/(u^2 + 1) is c0 then c1.
 //
+// The multiply: CIOS (Koc et al.) over 32-bit words, written on the PTX
+// carry flag (mad.lo.cc / madc.hi.cc / addc.cc) in the manner of Emmart,
+// Luitjens, Weems and Woolley, "Optimizing Modular Multiplication for
+// NVIDIA's Maxwell GPUs" (ARITH 2016). One row x * y (x = a or the modulus,
+// y = one word) puts lo(x_j y) in column j and hi(x_j y) in column j + 1, so
+// the products of the even words x_0, x_2, x_4, x_6 cover columns 0-7 with no
+// overlap, one carry chain of 8 multiply-adds, and those of the odd words
+// columns 1-8, a second chain. The running value is kept as two arrays,
+// t = X + 2^32 Y: X holds the even chains' sums (X[k] in column k), Y the odd
+// chains' (Y[k] in column k + 1), and they are added once, at the end. Each
+// lo/hi pair of a chain then reads and writes one fixed pair of registers,
+// which the card does in one 64-bit multiply-add (IMAD.WIDE) with no moves in
+// between; one running value would pair its words differently in the two
+// chains and pay a move per word to re-pair them.
+//
+// Row i: m_i = X[0] * (-p^-1) mod 2^32 (column 0 is X[0] alone); Y += m_i p_odd;
+// X += m_i p_even, whose carry out of column 7 goes to Y[7] (column 8). X[0] is
+// then 0, and the division by 2^32 swaps the roles: the old Y is the new X
+// (its words now in columns 0-7), the old X[2..7] is the new Y (columns 1-6),
+// and the old X[1] (new column 0) is added to the new X[0] with add.cc, whose
+// carry, of column 1, is the carry-in of the next odd chain, which starts at
+// column 1 and writes the new Y from the old X[2..7] (rows 1-7 fold the shift
+// into that chain). Each chain is one asm statement, so the carry flag never
+// lives across compiler-scheduled code. A multiply is 8 rows of 4 x 8
+// multiply-adds plus the 8 digits m_i: the 264 multiply-adds the bound counts
+// (ops/ec.py), of which ptxas fuses each lo/hi pair into one IMAD.WIDE.
+//
 // Bound argument (every function returns a canonical value in [0, p)):
 //   * p < 2^254 for both BN254 fields, so 2p < 2^255 and any sum of two
 //     canonical values fits in 8 words with no carry out.
-//   * mont_mul is CIOS (Koc et al.) over 32-bit words with 64-bit column
-//     arithmetic. Every 64-bit step computes a*b + t + c with a, b, t, c
-//     < 2^32, which is at most 2^64 - 1: no overflow. With a, b < p, the
-//     running value after step i satisfies t < (2p + (2^32-1)p + (2^32-1)p)
-//     / 2^32 < 2p, and before the shift t < 2p + 2^33 p < 2^288, so 9 words
-//     hold it and the top word is 0 after the shift. One conditional
-//     subtract of p then gives [0, p).
+//   * mont_mul, with a, b < p. Before row i the running value is t < 2p
+//     (t = 0 before row 0). Row i adds a * b_i <= (2^32 - 1) p and
+//     m_i * p <= (2^32 - 1) p, so every partial sum is below 2p + 2^33 p,
+//     which is below 2^288 = columns 0-8. Y <= t / 2^32 < 2^256, so no chain
+//     on Y carries out of Y[7], whose chains end in a madc.hi with no carry
+//     out, and the carry X passes to Y[7] does not overflow it. m_i makes
+//     column 0 zero; dropping it gives t' = (t + a b_i + m_i p) / 2^32
+//     < (2p + 2 (2^32 - 1) p) / 2^32 = 2p. After row 7 the final add
+//     Y + X / 2^32 is that t' < 2p < 2^255, and one conditional subtract of
+//     p gives [0, p). The sequence was checked word by word, carry flags
+//     included, against integer arithmetic before it was built.
 //   * add: a + b < 2p, one conditional subtract. sub: a - b, adding p back
 //     when it borrows, lands in [0, p). neg(a) = sub(0, a), so 0 maps to 0.
 // There are no lazily reduced values anywhere: the TPU engine's bounded
-// "< 8p" bookkeeping (mont_pallas.py:20-34) is not needed, and its
-// approximate predecessor's failure mode cannot arise.
+// "< 8p" bookkeeping (mont_pallas.py:20-34) is not needed, and every kernel's
+// output equals its plain version's (fields/mont.py) bit for bit.
 //
-// What bounds it on an H100: 32-bit integer multiply-add throughput (each
-// 64-bit product is an IMAD.WIDE pair) and, for the Fq2 point formulas,
+// What bounds it on an H100: 32-bit integer multiply-adds, 264 per multiply,
+// at 64 per SM per clock (NVIDIA's table; csrc/imad_probe.cu measures the
+// card's IMAD and IMAD.WIDE issue); and, for the Fq2 point formulas,
 // registers. The code is straight-line after unrolling, so all limbs live in
-// registers; constants fold into immediates. The 2^16-element field check
-// kernel uses 42 registers (ptxas -v, CUDA 12.8, sm_90a).
+// registers; constants fold into immediates.
 
 #pragma once
 #include <cstddef>
@@ -38,7 +69,6 @@
 namespace kt {
 
 typedef uint32_t u32;
-typedef uint64_t u64;
 
 // BN254 base field q.
 struct Fq {
@@ -70,83 +100,201 @@ struct Fr {
   }
 };
 
+// ---------------------------------------------------------------------------
+// Carry chains. Each is one asm statement: the carry flag is only valid
+// inside one.
+// ---------------------------------------------------------------------------
+
+// X[0..7] += (x0, x2, x4, x6) * y as lo/hi pairs; the carry out of X[7]
+// (column 8) goes into y7, the odd array's top word.
+__device__ __forceinline__ void even_row(u32* X, u32& y7, u32 x0, u32 x2, u32 x4, u32 x6, u32 y) {
+  asm("mad.lo.cc.u32  %0, %9,  %13, %0;\n\t"
+      "madc.hi.cc.u32 %1, %9,  %13, %1;\n\t"
+      "madc.lo.cc.u32 %2, %10, %13, %2;\n\t"
+      "madc.hi.cc.u32 %3, %10, %13, %3;\n\t"
+      "madc.lo.cc.u32 %4, %11, %13, %4;\n\t"
+      "madc.hi.cc.u32 %5, %11, %13, %5;\n\t"
+      "madc.lo.cc.u32 %6, %12, %13, %6;\n\t"
+      "madc.hi.cc.u32 %7, %12, %13, %7;\n\t"
+      "addc.u32       %8, %8,  0;"
+      : "+r"(X[0]), "+r"(X[1]), "+r"(X[2]), "+r"(X[3]), "+r"(X[4]), "+r"(X[5]),
+        "+r"(X[6]), "+r"(X[7]), "+r"(y7)
+      : "r"(x0), "r"(x2), "r"(x4), "r"(x6), "r"(y));
+}
+
+// Y[0..7] += (x1, x3, x5, x7) * y as lo/hi pairs; no carry out of Y[7] (the
+// bound argument above).
+__device__ __forceinline__ void odd_row(u32* Y, u32 x1, u32 x3, u32 x5, u32 x7, u32 y) {
+  asm("mad.lo.cc.u32  %0, %8,  %12, %0;\n\t"
+      "madc.hi.cc.u32 %1, %8,  %12, %1;\n\t"
+      "madc.lo.cc.u32 %2, %9,  %12, %2;\n\t"
+      "madc.hi.cc.u32 %3, %9,  %12, %3;\n\t"
+      "madc.lo.cc.u32 %4, %10, %12, %4;\n\t"
+      "madc.hi.cc.u32 %5, %10, %12, %5;\n\t"
+      "madc.lo.cc.u32 %6, %11, %12, %6;\n\t"
+      "madc.hi.u32    %7, %11, %12, %7;"
+      : "+r"(Y[0]), "+r"(Y[1]), "+r"(Y[2]), "+r"(Y[3]), "+r"(Y[4]), "+r"(Y[5]),
+        "+r"(Y[6]), "+r"(Y[7])
+      : "r"(x1), "r"(x3), "r"(x5), "r"(x7), "r"(y));
+}
+
+// The division by 2^32 folded into row i's odd chain: nx0 (the new X[0],
+// column 0) += X[1], and its carry enters NY = X[2..7] + (x1, x3, x5, x7) * y,
+// the new odd array (columns 1-8). No carry out of NY[7].
+__device__ __forceinline__ void odd_row_shifted(u32* NY, u32& nx0, const u32* X, u32 x1, u32 x3,
+                                                u32 x5, u32 x7, u32 y) {
+  asm("add.cc.u32     %8, %8,  %9;\n\t"
+      "madc.lo.cc.u32 %0, %16, %20, %10;\n\t"
+      "madc.hi.cc.u32 %1, %16, %20, %11;\n\t"
+      "madc.lo.cc.u32 %2, %17, %20, %12;\n\t"
+      "madc.hi.cc.u32 %3, %17, %20, %13;\n\t"
+      "madc.lo.cc.u32 %4, %18, %20, %14;\n\t"
+      "madc.hi.cc.u32 %5, %18, %20, %15;\n\t"
+      "madc.lo.cc.u32 %6, %19, %20, 0;\n\t"
+      "madc.hi.u32    %7, %19, %20, 0;"
+      : "=r"(NY[0]), "=r"(NY[1]), "=r"(NY[2]), "=r"(NY[3]), "=r"(NY[4]), "=r"(NY[5]),
+        "=r"(NY[6]), "=r"(NY[7]), "+r"(nx0)
+      : "r"(X[1]), "r"(X[2]), "r"(X[3]), "r"(X[4]), "r"(X[5]), "r"(X[6]), "r"(X[7]),
+        "r"(x1), "r"(x3), "r"(x5), "r"(x7), "r"(y));
+}
+
+// r = Y + X / 2^32 (X[0] is 0): the one add of the two arrays.
+__device__ __forceinline__ void merge_rows(u32* r, const u32* X, const u32* Y) {
+  asm("add.cc.u32  %0, %8,  %16;\n\t"
+      "addc.cc.u32 %1, %9,  %17;\n\t"
+      "addc.cc.u32 %2, %10, %18;\n\t"
+      "addc.cc.u32 %3, %11, %19;\n\t"
+      "addc.cc.u32 %4, %12, %20;\n\t"
+      "addc.cc.u32 %5, %13, %21;\n\t"
+      "addc.cc.u32 %6, %14, %22;\n\t"
+      "addc.u32    %7, %15, 0;"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]), "=r"(r[4]), "=r"(r[5]),
+        "=r"(r[6]), "=r"(r[7])
+      : "r"(Y[0]), "r"(Y[1]), "r"(Y[2]), "r"(Y[3]), "r"(Y[4]), "r"(Y[5]), "r"(Y[6]),
+        "r"(Y[7]), "r"(X[1]), "r"(X[2]), "r"(X[3]), "r"(X[4]), "r"(X[5]), "r"(X[6]),
+        "r"(X[7]));
+}
+
+// r = t - p and the borrow as a mask (0 or ~0), one chain.
+template <class F>
+__device__ __forceinline__ u32 sub_p(u32* r, const u32* t) {
+  u32 bw;
+  asm("sub.cc.u32  %0, %9,  %17;\n\t"
+      "subc.cc.u32 %1, %10, %18;\n\t"
+      "subc.cc.u32 %2, %11, %19;\n\t"
+      "subc.cc.u32 %3, %12, %20;\n\t"
+      "subc.cc.u32 %4, %13, %21;\n\t"
+      "subc.cc.u32 %5, %14, %22;\n\t"
+      "subc.cc.u32 %6, %15, %23;\n\t"
+      "subc.cc.u32 %7, %16, %24;\n\t"
+      "subc.u32    %8, 0, 0;"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]), "=r"(r[4]), "=r"(r[5]),
+        "=r"(r[6]), "=r"(r[7]), "=r"(bw)
+      : "r"(t[0]), "r"(t[1]), "r"(t[2]), "r"(t[3]), "r"(t[4]), "r"(t[5]), "r"(t[6]),
+        "r"(t[7]), "r"(F::p(0)), "r"(F::p(1)), "r"(F::p(2)), "r"(F::p(3)),
+        "r"(F::p(4)), "r"(F::p(5)), "r"(F::p(6)), "r"(F::p(7)));
+  return bw;
+}
+
 // r = t if t < p else t - p, for t < 2p.
 template <class F>
 __device__ __forceinline__ void cond_sub_p(u32* r, const u32* t) {
   u32 d[8];
-  u32 borrow = 0;
+  const u32 bw = sub_p<F>(d, t);
 #pragma unroll
-  for (int j = 0; j < 8; j++) {
-    u64 x = (u64)t[j] - F::p(j) - borrow;
-    d[j] = (u32)x;
-    borrow = (u32)(x >> 63);
-  }
-#pragma unroll
-  for (int j = 0; j < 8; j++) r[j] = borrow ? t[j] : d[j];
+  for (int j = 0; j < 8; j++) r[j] = bw ? t[j] : d[j];
+}
+
+// Row i's reduction: m = X[0] * (-p^-1), then t += m p as two chains.
+template <class F>
+__device__ __forceinline__ void reduce_row(u32* X, u32* Y) {
+  const u32 m = X[0] * F::inv;
+  odd_row(Y, F::p(1), F::p(3), F::p(5), F::p(7), m);
+  even_row(X, Y[7], F::p(0), F::p(2), F::p(4), F::p(6), m);
 }
 
 template <class F>
 __device__ __forceinline__ void fp_mul(u32* r, const u32* a, const u32* b) {
-  u32 t[9];
+  u32 X[8], Y[8];
+  // row 0: each array's products land on distinct words, so no chain is needed
 #pragma unroll
-  for (int j = 0; j < 9; j++) t[j] = 0;
-#pragma unroll
-  for (int i = 0; i < 8; i++) {
-    u64 c = 0;
-#pragma unroll
-    for (int j = 0; j < 8; j++) {
-      c += (u64)a[j] * b[i] + t[j];
-      t[j] = (u32)c;
-      c >>= 32;
-    }
-    u64 s = (u64)t[8] + c;
-    t[8] = (u32)s;  // s < 2^32: the running value is < 2^288
-    u32 m = t[0] * F::inv;
-    c = ((u64)m * F::p(0) + t[0]) >> 32;
-#pragma unroll
-    for (int j = 1; j < 8; j++) {
-      c += (u64)m * F::p(j) + t[j];
-      t[j - 1] = (u32)c;
-      c >>= 32;
-    }
-    s = (u64)t[8] + c;
-    t[7] = (u32)s;
-    t[8] = (u32)(s >> 32);
+  for (int k = 0; k < 8; k += 2) {
+    X[k] = a[k] * b[0];
+    X[k + 1] = __umulhi(a[k], b[0]);
+    Y[k] = a[k + 1] * b[0];
+    Y[k + 1] = __umulhi(a[k + 1], b[0]);
   }
+  reduce_row<F>(X, Y);
+#pragma unroll
+  for (int i = 1; i < 8; i++) {
+    u32 NX[8], NY[8];
+#pragma unroll
+    for (int k = 0; k < 8; k++) NX[k] = Y[k];  // the old odd array, now columns 0-7
+    odd_row_shifted(NY, NX[0], X, a[1], a[3], a[5], a[7], b[i]);
+    even_row(NX, NY[7], a[0], a[2], a[4], a[6], b[i]);
+    reduce_row<F>(NX, NY);
+#pragma unroll
+    for (int k = 0; k < 8; k++) {
+      X[k] = NX[k];
+      Y[k] = NY[k];
+    }
+  }
+  u32 t[8];
+  merge_rows(t, X, Y);
   cond_sub_p<F>(r, t);
 }
 
 template <class F>
 __device__ __forceinline__ void fp_add(u32* r, const u32* a, const u32* b) {
   u32 t[8];
-  u64 c = 0;
-#pragma unroll
-  for (int j = 0; j < 8; j++) {
-    c += (u64)a[j] + b[j];
-    t[j] = (u32)c;
-    c >>= 32;
-  }
+  asm("add.cc.u32  %0, %8,  %16;\n\t"
+      "addc.cc.u32 %1, %9,  %17;\n\t"
+      "addc.cc.u32 %2, %10, %18;\n\t"
+      "addc.cc.u32 %3, %11, %19;\n\t"
+      "addc.cc.u32 %4, %12, %20;\n\t"
+      "addc.cc.u32 %5, %13, %21;\n\t"
+      "addc.cc.u32 %6, %14, %22;\n\t"
+      "addc.u32    %7, %15, %23;"
+      : "=r"(t[0]), "=r"(t[1]), "=r"(t[2]), "=r"(t[3]), "=r"(t[4]), "=r"(t[5]),
+        "=r"(t[6]), "=r"(t[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(a[4]), "r"(a[5]), "r"(a[6]),
+        "r"(a[7]), "r"(b[0]), "r"(b[1]), "r"(b[2]), "r"(b[3]), "r"(b[4]), "r"(b[5]),
+        "r"(b[6]), "r"(b[7]));
   cond_sub_p<F>(r, t);
 }
 
 template <class F>
 __device__ __forceinline__ void fp_sub(u32* r, const u32* a, const u32* b) {
-  u32 t[8];
-  u32 borrow = 0;
+  u32 t[8], bw;
+  asm("sub.cc.u32  %0, %9,  %17;\n\t"
+      "subc.cc.u32 %1, %10, %18;\n\t"
+      "subc.cc.u32 %2, %11, %19;\n\t"
+      "subc.cc.u32 %3, %12, %20;\n\t"
+      "subc.cc.u32 %4, %13, %21;\n\t"
+      "subc.cc.u32 %5, %14, %22;\n\t"
+      "subc.cc.u32 %6, %15, %23;\n\t"
+      "subc.cc.u32 %7, %16, %24;\n\t"
+      "subc.u32    %8, 0, 0;"
+      : "=r"(t[0]), "=r"(t[1]), "=r"(t[2]), "=r"(t[3]), "=r"(t[4]), "=r"(t[5]),
+        "=r"(t[6]), "=r"(t[7]), "=r"(bw)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(a[4]), "r"(a[5]), "r"(a[6]),
+        "r"(a[7]), "r"(b[0]), "r"(b[1]), "r"(b[2]), "r"(b[3]), "r"(b[4]), "r"(b[5]),
+        "r"(b[6]), "r"(b[7]));
+  // add p back only when a < b
+  asm("add.cc.u32  %0, %0, %8;\n\t"
+      "addc.cc.u32 %1, %1, %9;\n\t"
+      "addc.cc.u32 %2, %2, %10;\n\t"
+      "addc.cc.u32 %3, %3, %11;\n\t"
+      "addc.cc.u32 %4, %4, %12;\n\t"
+      "addc.cc.u32 %5, %5, %13;\n\t"
+      "addc.cc.u32 %6, %6, %14;\n\t"
+      "addc.u32    %7, %7, %15;"
+      : "+r"(t[0]), "+r"(t[1]), "+r"(t[2]), "+r"(t[3]), "+r"(t[4]), "+r"(t[5]),
+        "+r"(t[6]), "+r"(t[7])
+      : "r"(F::p(0) & bw), "r"(F::p(1) & bw), "r"(F::p(2) & bw), "r"(F::p(3) & bw),
+        "r"(F::p(4) & bw), "r"(F::p(5) & bw), "r"(F::p(6) & bw), "r"(F::p(7) & bw));
 #pragma unroll
-  for (int j = 0; j < 8; j++) {
-    u64 x = (u64)a[j] - b[j] - borrow;
-    t[j] = (u32)x;
-    borrow = (u32)(x >> 63);
-  }
-  u32 mask = 0u - borrow;  // add p back only when a < b
-  u64 c = 0;
-#pragma unroll
-  for (int j = 0; j < 8; j++) {
-    c += (u64)t[j] + (F::p(j) & mask);
-    r[j] = (u32)c;
-    c >>= 32;
-  }
+  for (int j = 0; j < 8; j++) r[j] = t[j];
 }
 
 template <class F>
@@ -212,9 +360,12 @@ struct Alg1 {
 };
 
 // One base-field multiply as a call. The Fq2 point formulas would otherwise
-// inline some forty 8x8-word products per add; with CUDA 12.8 that made
-// cicc (the device front end) crash with a segmentation fault. Arguments go
-// by value, so the call keeps them in registers (no stack frame, no spills).
+// inline some forty 8x8-word products per add. With the u64-column multiply
+// of the port's first version that made cicc (the device front end) crash
+// with a segmentation fault; with the carry chains it builds, at 252-255
+// registers, but K3 G2 and K2 G2 ran slower than with the call (PERF.md).
+// Arguments go by value, so the call keeps them in registers (no stack
+// frame, no spills).
 template <class F>
 __device__ __noinline__ Elem<8> fp_mul_call(Elem<8> a, Elem<8> b) {
   Elem<8> r;

@@ -14,11 +14,11 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from kogarashi_tpu import constants as C
-from kogarashi_tpu.pyref import G1_SPEC, G2_SPEC, Fq, Fq2
-
+from . import constants as C
+from .devices import resolve
 from .fields import mont
 from .fields.spec import FQ, FieldSpec
+from .pyref import G1_SPEC, G2_SPEC, Fq, Fq2
 
 
 @dataclass(frozen=True)
@@ -71,9 +71,11 @@ G2 = Curve("g2", 2, FQ, (3 * C.G2_B[0] % C.Q, 3 * C.G2_B[1] % C.Q), G2_SPEC)
 CURVES = {"g1": G1, "g2": G2}
 
 
-def prepare_points(curve: Curve, pts, device="cpu"):
+def prepare_points(curve: Curve, pts, device=None):
     """pyref affine points -> (x, y, inf): (rows, n) int32 Montgomery words
-    and an (n,) bool mask. The identity encodes as x = y = 0."""
+    and an (n,) bool mask on `device` (None: the card). The identity encodes
+    as x = y = 0."""
+    device = resolve(device)
     zero = [0] * curve.ext
     xs = curve.encode_coords([zero if q.is_infinity else curve.comps(q.x) for q in pts])
     ys = curve.encode_coords([zero if q.is_infinity else curve.comps(q.y) for q in pts])
@@ -82,8 +84,10 @@ def prepare_points(curve: Curve, pts, device="cpu"):
             torch.from_numpy(inf).to(device))
 
 
-def encode_projective(curve: Curve, pts, device="cpu"):
-    """pyref affine points -> projective word batch (X, Y, Z), identity (0:1:0)."""
+def encode_projective(curve: Curve, pts, device=None):
+    """pyref affine points -> projective word batch (X, Y, Z) on `device`
+    (None: the card), identity (0:1:0)."""
+    device = resolve(device)
     zero, one = [0] * curve.ext, [1] + [0] * (curve.ext - 1)
     out = []
     for coord in ("x", "y", "z"):

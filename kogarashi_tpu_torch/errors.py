@@ -1,0 +1,25 @@
+"""The Groth16 failure modes the port raises (parity: groth16/src/error.rs).
+
+The port's own copy of the two classes of `kogarashi_tpu/errors.py` it uses.
+"""
+
+from __future__ import annotations
+
+
+class KogarashiError(Exception):
+    """Base class for all protocol-level failures."""
+
+
+class ProverSubVersionCrsAttack(KogarashiError):
+    """CRS contains an identity delta/gamma: a subverted setup
+    (error.rs: ProverSubVersionCrsAttack)."""
+
+
+class InconsistentPublicInputsLen(KogarashiError):
+    """Public input vector length differs from the verifying key
+    (error.rs: InconsistentPublicInputsLen)."""
+
+    def __init__(self, expected: int, provided: int):
+        super().__init__(f"expected {expected} public inputs, got {provided}")
+        self.expected = expected
+        self.provided = provided

@@ -3,8 +3,8 @@
 A field element is 8 little-endian 32-bit words, Montgomery form with
 R = 2^256 (the radix of `kogarashi_tpu/fields/mont.py` and of the Rust
 reference), stored limb-major as int32 tensors holding the bit pattern:
-a batch of n elements is an (8, n) array. Constants come from
-`kogarashi_tpu.constants`, which imports no JAX.
+a batch of n elements is an (8, n) array. Constants come from the port's
+`constants.py`.
 
 Scalars that only feed digit extraction stay in standard form as (16, n)
 16-bit limbs, the layout of the JAX package's `ints_to_limbs(...).T`.
@@ -16,7 +16,7 @@ from dataclasses import dataclass
 
 import numpy as np
 
-from kogarashi_tpu import constants as C
+from .. import constants as C
 
 N_WORDS = 8
 MONT_R = 1 << 256

@@ -2,12 +2,11 @@
 
 Parity: groth16/src/{zksnark,prover,verifier,proof,params}.rs and the JAX
 package's `kogarashi_tpu/groth16`. `SquareChainCircuit` (the 2^20-constraint
-benchmark circuit, `kogarashi_tpu/r1cs/vector.py`) is re-exported for
-callers of the port.
+benchmark circuit, the port's copy of `kogarashi_tpu/r1cs/vector.py`) is
+re-exported for callers of the port.
 """
 
-from kogarashi_tpu.r1cs.vector import SquareChainCircuit
-
+from ..r1cs.vector import SquareChainCircuit
 from .circuit import Circuit
 from .keys import Parameters, PreparedVerifyingKey, Proof, Verifier, VerifyingKey
 from .prover import Prover

@@ -9,7 +9,7 @@ from __future__ import annotations
 
 from abc import ABC, abstractmethod
 
-from kogarashi_tpu.r1cs import BN254_DRIVER, R1CS
+from ..r1cs import BN254_DRIVER, R1CS
 
 
 class Circuit(ABC):

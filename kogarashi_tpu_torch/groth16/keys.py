@@ -4,7 +4,8 @@ Mirrors `kogarashi_tpu/groth16/keys.py` (:25-92), whose module cannot be
 imported without JAX (its package `__init__` imports the JAX prover). The
 verifying-key points are host pyref points; query vectors are affine word
 batches (x, y, inf) on the prover's device, the MSM's input format.
-Verification is the same three-pair check on `kogarashi_tpu.pyref.pairing_fast`.
+Verification is the same three-pair check, on the port's copy of
+`pyref.pairing_fast`.
 """
 
 from __future__ import annotations
@@ -12,9 +13,9 @@ from __future__ import annotations
 from dataclasses import dataclass
 from typing import Any
 
-from kogarashi_tpu.errors import InconsistentPublicInputsLen
-from kogarashi_tpu.pyref import AffinePoint, Fq12
-from kogarashi_tpu.pyref.pairing_fast import G2Prepared, final_exp_fast, multi_miller_loop
+from ..errors import InconsistentPublicInputsLen
+from ..pyref import AffinePoint, Fq12
+from ..pyref.pairing_fast import G2Prepared, final_exp_fast, multi_miller_loop
 
 
 @dataclass

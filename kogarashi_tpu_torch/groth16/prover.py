@@ -17,10 +17,9 @@ import random
 
 import torch
 
-from kogarashi_tpu import constants as C
-from kogarashi_tpu.errors import ProverSubVersionCrsAttack
-
+from .. import constants as C
 from ..curves import G1, G2, decode_points
+from ..errors import ProverSubVersionCrsAttack
 from ..fields import mont
 from ..fields.spec import FR, ints_to_words
 from ..ops.msm import msm

@@ -21,15 +21,15 @@ import random
 
 import torch
 
-from kogarashi_tpu import constants as C
-from kogarashi_tpu.pyref import G1_SPEC, G2_SPEC
-
+from .. import constants as C
 from ..curves import G1, G2, decode_affine, to_affine
+from ..devices import resolve
 from ..fields import mont
 from ..fields.spec import FR, ints_to_limbs16, ints_to_words
 from ..ops.fixed_base import fixed_base_mul
 from ..ops.ntt import Domain
 from ..ops.spmv import r1cs_matrices, transposed_matvec
+from ..pyref import G1_SPEC, G2_SPEC
 from ..stages import Stages
 from .keys import Parameters, Verifier, VerifyingKey
 from .prover import Prover
@@ -47,8 +47,10 @@ def std_limbs(words):
     return mont.to_halves(mont.to_std(words, FR))
 
 
-def setup(circuit, rng: random.Random | None = None, device="cpu"):
-    """Returns (Prover, Verifier); the parameters live on `device`."""
+def setup(circuit, rng: random.Random | None = None, device=None):
+    """Returns (Prover, Verifier); the parameters live on `device` (None:
+    the card, which must exist; "cpu" runs the kernels' plain versions)."""
+    device = resolve(device)
     rng = rng or random.Random()
     r = C.R
     st = Stages(LOG, "setup", device)

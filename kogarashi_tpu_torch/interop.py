@@ -10,7 +10,9 @@ Two source layouts exist in `kogarashi_tpu`:
 
 `params_from_jax` turns the JAX package's Groth16 `Parameters` into the
 port's, so both provers can run on the same keys. This module takes numpy
-arrays and pyref objects only; it does not import JAX.
+arrays, and points by their integer coordinates; it imports nothing of the
+JAX package. The verifying key's points are rebuilt as the port's own pyref
+points, so the port's verifier takes them.
 """
 
 from __future__ import annotations
@@ -18,9 +20,12 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .curves import G1, G2
+from .devices import resolve
 from .fields import mont
 from .fields.spec import FQ, FieldSpec, ints_to_words
 from .groth16.keys import Parameters, VerifyingKey
+from .pyref import AffinePoint
 
 
 def words_from_limbs16(a) -> np.ndarray:
@@ -42,9 +47,10 @@ def words_from_limbs13(a) -> np.ndarray:
     return out.astype(np.uint32).view(np.int32)
 
 
-def from_mont260(rows13, spec: FieldSpec, ext: int = 1, device="cpu"):
+def from_mont260(rows13, spec: FieldSpec, ext: int = 1, device=None):
     """(n, 20 * ext) 13-bit R' = 2^260 Montgomery rows -> (8 * ext, n)
-    R = 2^256 Montgomery words on `device`."""
+    R = 2^256 Montgomery words on `device` (None: the card)."""
+    device = resolve(device)
     rows13 = np.asarray(rows13)
     n = rows13.shape[0]
     comps = rows13.reshape(n, ext, 20)
@@ -56,16 +62,30 @@ def from_mont260(rows13, spec: FieldSpec, ext: int = 1, device="cpu"):
     return torch.cat(out)
 
 
-def query_from_jax(rows, ext: int, device="cpu"):
-    """JAX MSM query (x_rows, y_rows, inf, gen_xy) -> port (x, y, inf)."""
+def query_from_jax(rows, ext: int, device=None):
+    """JAX MSM query (x_rows, y_rows, inf, gen_xy) -> port (x, y, inf) on
+    `device` (None: the card)."""
+    device = resolve(device)
     x_rows, y_rows, inf, _ = rows
     return (from_mont260(x_rows, FQ, ext, device), from_mont260(y_rows, FQ, ext, device),
             torch.from_numpy(np.asarray(inf, bool).copy()).to(device))
 
 
-def params_from_jax(jp, device="cpu") -> Parameters:
+def port_point(curve, q) -> AffinePoint:
+    """An affine point with integer-valued coordinates (`.v`, or `.c0.v` and
+    `.c1.v` over Fq2) and `is_infinity` -> the port's pyref point."""
+    spec = curve.pyref_spec
+    if q.is_infinity:
+        return spec.identity_affine()
+    make = spec.field if curve.ext == 1 else spec.field.new
+    return AffinePoint(spec, make(*curve.comps(q.x)), make(*curve.comps(q.y)), False)
+
+
+def params_from_jax(jp, device=None) -> Parameters:
     """`kogarashi_tpu.groth16.keys.Parameters` (arrays as numpy or anything
-    `np.asarray` takes) -> the port's `Parameters` on `device`."""
+    `np.asarray` takes) -> the port's `Parameters` on `device` (None: the
+    card)."""
+    device = resolve(device)
     mats = [
         dict(
             row=torch.from_numpy(np.asarray(m["row"], np.int64)).to(device),
@@ -76,8 +96,15 @@ def params_from_jax(jp, device="cpu") -> Parameters:
     ]
     vk = jp.vk
     return Parameters(
-        vk=VerifyingKey(vk.alpha_g1, vk.beta_g1, vk.beta_g2, vk.gamma_g2, vk.delta_g1,
-                        vk.delta_g2, list(vk.ic)),
+        vk=VerifyingKey(
+            alpha_g1=port_point(G1, vk.alpha_g1),
+            beta_g1=port_point(G1, vk.beta_g1),
+            beta_g2=port_point(G2, vk.beta_g2),
+            gamma_g2=port_point(G2, vk.gamma_g2),
+            delta_g1=port_point(G1, vk.delta_g1),
+            delta_g2=port_point(G2, vk.delta_g2),
+            ic=[port_point(G1, q) for q in vk.ic],
+        ),
         h=query_from_jax(jp.h, 1, device),
         l=query_from_jax(jp.l, 1, device),
         a=query_from_jax(jp.a, 1, device),

@@ -1,14 +1,16 @@
 """Build and load the CUDA kernels (csrc/*.cu) at first use.
 
-`nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler -fPIC`
-compiles every source into one shared library with a plain C interface,
-cached in `kogarashi_tpu_torch/_build/` under a hash of the sources; the
+Each source is compiled by its own `nvcc -gencode arch=compute_90a,code=sm_90a
+-O3 -Xcompiler -fPIC -c`, all started together, and the objects are linked
+into one shared library with a plain C interface, cached in
+`kogarashi_tpu_torch/_build/` under a hash of the sources and flags; the
 library is loaded with `ctypes`. A failed build or load raises. Nothing here
 runs at import time.
 """
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import hashlib
 import os
@@ -33,21 +35,22 @@ _SIGNATURES = {
     "kt_map_pdouble_{c}": [P, P, P, P, P, P, I, I, P],
 }
 _FIELD_SIGNATURE = [P, P, P, I, I, P]
+_PROBE_SIGNATURES = {"kt_imad_probe_info": [I, P], "kt_imad_probe": [I, I, I, P, P, P]}
 
 
 def _sources():
     return sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh"))
 
 
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
+def _cuda_tool(name: str) -> str:
+    found = shutil.which(name)
     if found:
         return found
     home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
-    cand = Path(home) / "bin" / "nvcc"
+    cand = Path(home) / "bin" / name
     if cand.exists():
         return str(cand)
-    raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+    raise RuntimeError(f"{name} not found: the CUDA kernels cannot be built")
 
 
 def source_hash() -> str:
@@ -66,16 +69,27 @@ def build() -> Path:
     if lib.exists():
         return lib
     BUILD.mkdir(parents=True, exist_ok=True)
-    tmp = BUILD / f".libkt_{key}.{os.getpid()}.so"
-    cmd = [
-        _nvcc(), "-gencode", ARCH, "-std=c++17", "-O3", "-shared",
-        "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-o", str(tmp),
-        *[str(f) for f in sorted(CSRC.glob("*.cu"))],
-    ]
-    res = subprocess.run(cmd, capture_output=True, text=True)
+    nvcc = _cuda_tool("nvcc")
+    common = [nvcc, "-gencode", ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC"]
+    tag = f"{key}.{os.getpid()}"
+    objs, procs = [], []
+    for src in sorted(CSRC.glob("*.cu")):
+        obj = BUILD / f".{src.stem}_{tag}.o"
+        objs.append(obj)
+        procs.append(subprocess.Popen([*common, "-Xptxas", "-v", "-c", "-o", str(obj), str(src)],
+                                      stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    outs = [p.communicate()[0] for p in procs]
+    failed = [(p.returncode, o) for p, o in zip(procs, outs) if p.returncode != 0]
+    if failed:
+        raise RuntimeError(f"nvcc failed ({failed[0][0]}):\n{failed[0][1][-8000:]}")
+    tmp = BUILD / f".libkt_{tag}.so"
+    res = subprocess.run([*common, "-shared", "-o", str(tmp), *map(str, objs)],
+                         capture_output=True, text=True)
+    for obj in objs:
+        obj.unlink(missing_ok=True)
     if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr[-8000:]}")
-    log.write_text(res.stdout + res.stderr)
+        raise RuntimeError(f"nvcc link failed ({res.returncode}):\n{res.stderr[-8000:]}")
+    log.write_text("".join(outs))
     os.replace(tmp, lib)
     return lib
 
@@ -104,13 +118,38 @@ def ptxas_report() -> list[str]:
     return out
 
 
+def sass_report() -> list[str]:
+    """One line per kernel of the current build: SASS instructions, and the
+    IMAD-class ones (IMAD, IMAD.WIDE, IMAD.HI, ...), from `cuobjdump -sass`.
+    Straight-line counts: a loop body counts once."""
+    res = subprocess.run([_cuda_tool("cuobjdump"), "-sass", str(build())],
+                         capture_output=True, text=True, check=True)
+    counts: dict = collections.OrderedDict()
+    name = None
+    for line in res.stdout.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            name = _demangle(m.group(1))
+            counts[name] = collections.Counter()
+            continue
+        m = re.match(r"\s+/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_]*)(\.[A-Z0-9_.]+)?", line)
+        if m and name:
+            counts[name]["all"] += 1
+            counts[name][m.group(1)] += 1
+            if m.group(1) == "IMAD" and (m.group(2) or "").startswith((".WIDE", ".MOV")):
+                counts[name]["IMAD." + m.group(2).split(".")[1]] += 1
+    return [f"{k}: {c['all']} instructions, IMAD {c['IMAD']} (WIDE {c['IMAD.WIDE']}, "
+            f"MOV {c['IMAD.MOV']}), IADD3 {c['IADD3']}, SEL {c['SEL']}, LDG {c['LDG']}, "
+            f"LDGSTS {c['LDGSTS']}, LDS {c['LDS']}, STG {c['STG']}"
+            for k, c in counts.items()]
+
+
 def _demangle(name: str) -> str:
-    for kern in ("scan_kernel", "padd_kernel", "pdouble_kernel", "field_op_kernel"):
+    for kern in ("scan_mixed_kernel", "scan_proj_kernel", "padd_kernel", "pdouble_kernel",
+                 "field_op_kernel", "fp_mul_call", "imad_wide_probe_kernel", "imad_probe_kernel"):
         if kern in name:
             tags = [t for t in ("G1", "G2", "Fq", "Fr") if t in name]
-            if kern == "scan_kernel":
-                tags.append("mixed" if "Lb1E" in name else "proj")
-            return f"{kern}<{','.join(tags)}>"
+            return f"{kern}<{','.join(tags)}>" if tags else kern
     return name
 
 
@@ -128,6 +167,10 @@ def lib() -> ctypes.CDLL:
         for fld in ("fq", "fr"):
             fn = getattr(handle, f"kt_field_op_{fld}")
             fn.argtypes = _FIELD_SIGNATURE
+            fn.restype = ctypes.c_int
+        for fname, args in _PROBE_SIGNATURES.items():
+            fn = getattr(handle, fname)
+            fn.argtypes = args
             fn.restype = ctypes.c_int
         _LIB = handle
     return _LIB

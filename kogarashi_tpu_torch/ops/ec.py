@@ -17,6 +17,8 @@ one to the other.
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
 from ..curves import Curve
@@ -228,6 +230,73 @@ def map_pdouble(curve: Curve, p, times: int = 1):
     if C:
         _launch("map_pdouble", curve, p, out, C, times)
     return out
+
+
+# ---------------------------------------------------------------------------
+# the least time the card could take for a kernel call (chip_smoke.py)
+# ---------------------------------------------------------------------------
+
+# csrc/field.cuh's multiply is 264 32-bit integer multiply-adds (PTX mad.lo /
+# mad.hi): 8 rows of 4 chains of 8, and the 8 digits m_i. ptxas fuses each
+# lo/hi pair of a chain into one IMAD.WIDE, which yields both.
+MULADD_PER_MUL = 264
+# Montgomery multiplies per point op, as csrc/ec.cu does them: G1's b3
+# products are adds; G2's are Fq2 multiplies (an Fq2 mul is 3, a square 2)
+BASE_MULS = {
+    ("madd", "g1"): 11, ("padd", "g1"): 12, ("pdouble", "g1"): 8,
+    ("madd", "g2"): 39, ("padd", "g2"): 42, ("pdouble", "g2"): 25,
+}
+H100_SMS = 132
+# NVIDIA's arithmetic-throughput table (CUDA C++ Programming Guide, compute
+# capability 9.0): 64 32-bit integer multiply-adds per SM per clock.
+# `issue_rates` checks it on the card (chip_smoke.py logs it every run).
+MULADD_PER_SM_CLOCK = 64
+H100_BYTES_PER_S = 3.35e12  # HBM3, the H100 SXM data sheet
+_WORK = {  # kernel -> (point op, coordinate tensors read)
+    "scan_mixed": ("madd", 2), "scan_proj": ("padd", 3),
+    "map_padd": ("padd", 6), "map_pdouble": ("pdouble", 3),
+}
+
+
+def bound_ms(kernel: str, curve: Curve, shape, sm_clock_hz: float, times: int = 1):
+    """(ms, "operations" | "bytes"): the larger of the time for the 32-bit
+    multiply-adds (MULADD_PER_MUL per Montgomery multiply, at 64 per SM per
+    clock on 132 SMs) and the time to read each input and write each of the
+    three outputs once at 3.35 TB/s, for one call on `shape` ((rows, L, C) or
+    (rows, C))."""
+    op, n_in = _WORK[kernel]
+    lanes = 1
+    for s in shape[1:]:
+        lanes *= int(s)
+    point_ops = lanes * (times if kernel == "map_pdouble" else 1)
+    muladds = point_ops * BASE_MULS[(op, curve.name)] * MULADD_PER_MUL
+    t_ops = muladds / (H100_SMS * MULADD_PER_SM_CLOCK * sm_clock_hz) * 1e3
+    t_bytes = (n_in + 3) * curve.rows * 4 * lanes / H100_BYTES_PER_S * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def issue_rates(device, iters: int = 1 << 13) -> dict:
+    """Instructions issued per SM per clock by csrc/imad_probe.cu, one full
+    wave of independent chains of each (the probe's header says how it
+    counts): "imad" (IMAD, one multiply-add) and "imad_wide" (IMAD.WIDE in
+    field.cuh's carry chains, two). A check of the rate `bound_ms` assumes,
+    not on the prove path."""
+    lib = _build.lib()
+    rates = {}
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream().cuda_stream
+        for mode, name in enumerate(("imad", "imad_wide")):
+            info = (ctypes.c_int * 3)()
+            _build.check(lib.kt_imad_probe_info(mode, info), "imad_probe_info")
+            per_sm, threads, per_round = info
+            n = torch.cuda.get_device_properties(device).multi_processor_count * per_sm * threads
+            sink = torch.empty(n, dtype=torch.int32, device=device)
+            cycles = torch.empty(n, dtype=torch.int64, device=device)
+            for _ in range(2):  # the first launch warms up
+                rc = lib.kt_imad_probe(mode, iters, n // threads, sink.data_ptr(), cycles.data_ptr(), stream)
+                _build.check(rc, "imad_probe")
+            rates[name] = per_sm * threads * iters * per_round / int(cycles.max())
+    return rates
 
 
 def field_op_cuda(spec_name: str, op: str, a, b):

@@ -17,14 +17,15 @@ from functools import lru_cache
 
 import torch
 
-from kogarashi_tpu.pyref.curve import ProjectivePoint, batch_to_affine
-
 from ..curves import CURVES, Curve, prepare_points
+from ..pyref.curve import ProjectivePoint, batch_to_affine
 from . import ec
 
 
 class FixedBaseTable:
-    def __init__(self, curve: Curve, c: int = 8, bits: int = 256, device="cpu"):
+    """The table lives on `device` (None: the card)."""
+
+    def __init__(self, curve: Curve, c: int = 8, bits: int = 256, device=None):
         assert 1 <= c <= 16
         self.curve = curve
         self.c = c

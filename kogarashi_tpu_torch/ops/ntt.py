@@ -17,6 +17,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..devices import resolve
 from ..fields import mont
 from ..fields.spec import FR, FieldSpec, ints_to_words
 
@@ -38,10 +39,12 @@ def _powers(base: int, count: int, p: int) -> list[int]:
 
 
 class Domain:
-    """2^k-point NTT domain over `spec` (default Fr); tables live on `device`."""
+    """2^k-point NTT domain over `spec` (default Fr); tables live on `device`
+    (None: the card)."""
 
-    def __init__(self, k: int, spec: FieldSpec = FR, device="cpu"):
+    def __init__(self, k: int, spec: FieldSpec = FR, device=None):
         assert 1 <= k <= spec.s
+        device = resolve(device)
         self.k = k
         self.n = n = 1 << k
         self.F = mont.field(spec)

@@ -13,6 +13,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..devices import resolve
 from ..fields import mont
 from ..fields.spec import FieldSpec
 
@@ -38,8 +39,10 @@ def _encode_coeffs(vals, spec: FieldSpec) -> np.ndarray:
     return spec.encode(list(vals))
 
 
-def r1cs_matrices(cs, spec: FieldSpec, device="cpu"):
-    """Host R1CS (anything with `matrices_coo()`) -> [A, B, C] COO dicts."""
+def r1cs_matrices(cs, spec: FieldSpec, device=None):
+    """Host R1CS (anything with `matrices_coo()`) -> [A, B, C] COO dicts on
+    `device` (None: the card)."""
+    device = resolve(device)
     out = []
     for ri, ci, vals in cs.matrices_coo():
         out.append(dict(

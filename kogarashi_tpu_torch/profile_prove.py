@@ -38,7 +38,7 @@ from .ops import _build
 from .ops.msm import msm
 
 LOG2_CONSTRAINTS = 20
-EC_KERNELS = ("scan_kernel", "padd_kernel", "pdouble_kernel")
+EC_KERNELS = ("scan_mixed_kernel", "scan_proj_kernel", "padd_kernel", "pdouble_kernel")
 
 
 def trace_summary(prof, window: str) -> dict:

@@ -1,0 +1,26 @@
+"""Pure-Python bigint oracle: BN254 fields, the Fq2/Fq6/Fq12 tower, G1 and G2,
+and the coefficient-based pairing the verifier runs.
+
+The port's own copy of the parts of `kogarashi_tpu/pyref` it uses. Slow,
+obvious Python, used as a test oracle and for O(1) host-side glue (verifying
+keys, proof assembly, verification), never on the hot path.
+"""
+
+from .field import Fq, Fr, PrimeField
+from .tower import Fq2, Fq6, Fq12
+from .curve import AffinePoint, CurveSpec, G1_SPEC, G2_SPEC, ProjectivePoint, batch_to_affine
+
+__all__ = [
+    "Fq",
+    "Fr",
+    "PrimeField",
+    "Fq2",
+    "Fq6",
+    "Fq12",
+    "AffinePoint",
+    "ProjectivePoint",
+    "CurveSpec",
+    "G1_SPEC",
+    "G2_SPEC",
+    "batch_to_affine",
+]

@@ -1,6 +1,8 @@
 """The CUDA kernels against their plain versions on the card. Marked `cuda`:
 without a CUDA device (the CPU test run) every test here skips. On a GPU
-machine: python -m pytest tests/test_torch_cuda.py -m cuda -q"""
+machine: python -m pytest tests/test_torch_cuda.py -m cuda --noconftest -q
+
+Imports only the port: the GPU machine has no JAX."""
 
 import random
 
@@ -8,10 +10,9 @@ import numpy as np
 import pytest
 import torch
 
-from kogarashi_tpu import constants as C
 from kogarashi_tpu_torch.curves import G1, G2, decode_points, prepare_points, to_affine
 from kogarashi_tpu_torch.fields import mont
-from kogarashi_tpu_torch.fields.spec import FQ, FR, ints_to_limbs16
+from kogarashi_tpu_torch.fields.spec import FQ, FR, MONT_R, ints_to_limbs16
 from kogarashi_tpu_torch.ops import ec
 from kogarashi_tpu_torch.ops.fixed_base import fixed_base_mul
 from kogarashi_tpu_torch.ops.msm import msm
@@ -26,12 +27,27 @@ def dev():
     return torch.device("cuda", 0)
 
 
+def _edge_values(p: int) -> list[int]:
+    """Values that stress the carry chains: 0, 1, p - 1, p - 2, R mod p, and
+    values below p whose top word is p's top word. The test multiplies every
+    pair, (p - 1) * (p - 1) among them."""
+    top, low = p >> 224, p & ((1 << 224) - 1)
+    rng = random.Random(p & 0xFFFF)
+    same_top = [top << 224] + [(top << 224) | rng.randrange(low) for _ in range(8)]
+    return [0, 1, p - 1, p - 2, MONT_R % p, *same_top]
+
+
 @pytest.mark.parametrize("spec,name", [(FQ, "fq"), (FR, "fr")], ids=["fq", "fr"])
 def test_field_kernel_matches_plain(dev, spec, name):
     rng = np.random.default_rng(1)
+    edges = _edge_values(spec.p)
+    assert all(0 <= v < spec.p for v in edges)
     vals = [int(v) % spec.p for v in rng.integers(0, 1 << 62, 4096)]
-    a = torch.from_numpy(spec.encode([0, 1, spec.p - 1] + vals)).to(dev)
-    b = a.flip(1).contiguous()
+    # every pair of edge values, then random values
+    ea = [x for x in edges for _ in edges]
+    eb = [y for _ in edges for y in edges]
+    a = torch.from_numpy(spec.encode(ea + vals)).to(dev)
+    b = torch.from_numpy(spec.encode(eb + vals[::-1])).to(dev)
     for op in ("mul", "sqr", "add", "sub", "neg"):
         args = (a, b) if op in ("mul", "add", "sub") else (a,)
         assert torch.equal(ec.field_op_cuda(name, op, a, b), getattr(mont, op)(*args, spec=spec)), op
@@ -55,11 +71,30 @@ def test_point_kernels_match_plain(dev, curve):
         assert all(torch.equal(g, w) for g, w in zip(got, want))
 
 
+@pytest.mark.parametrize("L,C", [(1, 333), (3, 200), (128, 131)], ids=["L1", "ragged", "L128"])
+@pytest.mark.parametrize("curve", [G1, G2], ids=["g1", "g2"])
+def test_scan_mixed_and_map_padd_shapes(dev, curve, L, C):
+    """K1 at L = 1 and L = 128 and at a C that is not a multiple of the
+    block, and K3 at the same ragged lane count, exactly."""
+    n = L * C
+    sc = np.random.default_rng(L * 1000 + C).integers(0, 1 << 16, size=(16, n), dtype=np.uint32)
+    sc[15] &= 0x3FFF
+    p = fixed_base_mul(curve, torch.from_numpy(sc.astype(np.int32)).to(dev))
+    ax, ay, _ = to_affine(curve, p)
+    scan_aff = tuple(t.reshape(curve.rows, L, C).contiguous() for t in (ax, ay))
+    got, want = ec.scan_mixed(curve, *scan_aff), ec.scan_mixed_plain(curve, *scan_aff)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    pc = tuple(t[:, :C].contiguous() for t in p)
+    qc = tuple(t[:, -C:].contiguous() for t in p)
+    got, want = ec.map_padd(curve, pc, qc), ec.map_padd_plain(curve, pc, qc)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+
+
 def test_msm_on_card_matches_oracle(dev):
     rng = random.Random(3)
     g = G1.pyref_spec.generator
-    pts = [rng.randrange(1, C.R) * g for _ in range(300)]
-    ks = [rng.randrange(C.R) for _ in range(300)]
+    pts = [rng.randrange(1, FR.p) * g for _ in range(300)]
+    ks = [rng.randrange(FR.p) for _ in range(300)]
     x, y, inf = prepare_points(G1, pts, dev)
     out = msm(G1, x, y, inf, torch.from_numpy(ints_to_limbs16(ks)).to(dev))
     want = G1.pyref_spec.identity_affine()

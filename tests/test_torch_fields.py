@@ -1,7 +1,9 @@
 """Port field engine (kogarashi_tpu_torch.fields) against the JAX package's
-field layers and the pyref oracle. Integer arithmetic: exact equality."""
+field layers and the port's own pyref oracle. Integer arithmetic: exact
+equality."""
 
 import re
+import textwrap
 from pathlib import Path
 
 import jax
@@ -14,10 +16,10 @@ from kogarashi_tpu import constants as C
 from kogarashi_tpu.fields import mont as jmont
 from kogarashi_tpu.fields import mont_pallas as M
 from kogarashi_tpu.fields.spec import FQ as JFQ, FR as JFR
-from kogarashi_tpu.pyref import Fq, Fq2
 from kogarashi_tpu_torch import interop
 from kogarashi_tpu_torch.fields import mont
 from kogarashi_tpu_torch.fields.spec import FQ, FR, ints_to_words, words_to_ints
+from kogarashi_tpu_torch.pyref import Fq, Fq2
 
 torch.set_num_threads(2)  # the suite runs several workers side by side
 
@@ -116,9 +118,10 @@ def test_mul_matches_mont_pallas():
     A13, B13 = jnp.asarray(enc13(a)), jnp.asarray(enc13(b))
     mm = np.asarray(M.canonical(M.mm(A13, B13, K), K, 2))
     sq = np.asarray(M.canonical(M.sqr(A13, K), K, 2))
-    assert torch.equal(interop.from_mont260(mm.T, FQ), mont.mul(enc(FQ, a), enc(FQ, b), spec=FQ))
-    assert torch.equal(interop.from_mont260(sq.T, FQ), mont.sqr(enc(FQ, a), spec=FQ))
-    assert torch.equal(interop.from_mont260(enc13(a).T, FQ), enc(FQ, a))
+    from260 = lambda rows: interop.from_mont260(rows, FQ, device="cpu")
+    assert torch.equal(from260(mm.T), mont.mul(enc(FQ, a), enc(FQ, b), spec=FQ))
+    assert torch.equal(from260(sq.T), mont.sqr(enc(FQ, a), spec=FQ))
+    assert torch.equal(from260(enc13(a).T), enc(FQ, a))
 
 
 def _hex_words(src: str, after: str, count: int):
@@ -142,9 +145,16 @@ def test_csrc_field_constants(name):
 
 
 def test_csrc_curve_constants():
+    """G1's mul_b3, a chain of field adds, multiplies by 3b; G2's b3
+    constant, in Montgomery form, is 3b."""
     src = (CSRC / "ec.cu").read_text()
     r = 1 << 256
-    assert _as_int(_hex_words(src, "struct G1 {", 8)) == 3 * C.G1_B * r % C.Q
+    g1 = src[src.index("struct G1 {"):src.index("struct G2 {")]
+    body = re.search(r"mul_b3\(const A::E& x\) \{(.*?)\n  \}", g1, re.S).group(1)
+    assert "mul" not in body  # adds only
+    env = {"add": lambda a, b: a + b, "x": 1}
+    exec(textwrap.dedent(body).replace("A::E ", "").replace("A::add", "add").replace("return", "b3 ="), env)
+    assert env["b3"] == 3 * C.G1_B
     g2 = _hex_words(src, "struct G2 {", 16)
     assert _as_int(g2[:8]) == 3 * C.G2_B[0] * r % C.Q
     assert _as_int(g2[8:]) == 3 * C.G2_B[1] * r % C.Q

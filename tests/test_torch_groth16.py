@@ -6,9 +6,9 @@ import random
 import pytest
 import torch
 
-from kogarashi_tpu.errors import InconsistentPublicInputsLen
-from kogarashi_tpu.r1cs import FieldAssignment
+from kogarashi_tpu_torch.errors import InconsistentPublicInputsLen
 from kogarashi_tpu_torch.groth16 import Circuit, SquareChainCircuit, setup
+from kogarashi_tpu_torch.r1cs import FieldAssignment
 
 torch.set_num_threads(2)  # the suite runs several workers side by side
 
@@ -30,7 +30,7 @@ class CubicCircuit(Circuit):
 
 
 def test_cubic_prove_verify():
-    prover, verifier = setup(CubicCircuit(), random.Random(42))
+    prover, verifier = setup(CubicCircuit(), random.Random(42), device="cpu")
     proof = prover.create_proof(CubicCircuit(x=3, o=35), random.Random(7))
     assert verifier.verify(proof, [3, 35])
     assert not verifier.verify(proof, [3, 36])
@@ -42,7 +42,7 @@ def test_cubic_prove_verify():
 def test_square_chain_prove_verify():
     circuit = SquareChainCircuit(16)
     cs = circuit.build()
-    prover, verifier = setup(circuit, random.Random(11))
+    prover, verifier = setup(circuit, random.Random(11), device="cpu")
     proof = prover.create_proof(circuit, random.Random(12))
     assert verifier.verify(proof, cs.x[1:])
     assert not verifier.verify(proof, [cs.x[1], cs.x[2] + 1])
@@ -60,16 +60,18 @@ def test_slice_matches_jax_bit_for_bit():
     from kogarashi_tpu_torch.curves import G1, G2, decode_affine
     from kogarashi_tpu_torch.groth16 import Prover
 
+    from test_torch_ec import coords
+
     circuit, witness = CubicCircuit(), CubicCircuit(x=3, o=35)
     jprover, jverifier = jax_setup(circuit, random.Random(11))
-    port_params = interop.params_from_jax(jprover.params)
+    port_params = interop.params_from_jax(jprover.params, device="cpu")
 
     jproof = jprover.create_proof(witness, random.Random(12))
     proof = Prover(port_params).create_proof(witness, random.Random(12))
-    assert (proof.a, proof.b, proof.c) == (jproof.a, jproof.b, jproof.c)
+    assert coords([proof.a, proof.b, proof.c]) == coords([jproof.a, jproof.b, jproof.c])
     assert jverifier.verify(jproof, [3, 35])
 
-    own_prover, own_verifier = setup(circuit, random.Random(11))
+    own_prover, own_verifier = setup(circuit, random.Random(11), device="cpu")
     own = own_prover.params
     assert own.vk == port_params.vk
     for name, curve in (("h", G1), ("l", G1), ("a", G1), ("b_g1", G1), ("b_g2", G2)):

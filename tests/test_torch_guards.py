@@ -1,6 +1,7 @@
-"""Guards on the port's boundaries: it never imports JAX (its target machine
-has none), it runs with JAX blocked, and chip_smoke.py refuses to run
-without a GPU."""
+"""Guards on the port's boundaries: it imports nothing of JAX or of the JAX
+package (its target machine has no JAX, and the port keeps its own copies),
+it runs with both blocked, its entry points run on the card unless told
+otherwise, and chip_smoke.py refuses to run without a GPU."""
 
 import ast
 import os
@@ -11,9 +12,8 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent.parent
 PORT = ROOT / "kogarashi_tpu_torch"
-# the JAX package's modules that import no JAX (their package __init__s
-# included); everything else in it does
-ALLOWED = {"constants", "errors", "utils", "pyref", "r1cs"}
+# modules of the JAX package the port may import: none
+ALLOWED = set()
 
 
 def _imports(path: Path):
@@ -35,8 +35,8 @@ def test_port_imports_no_jax():
         for mod in _imports(f):
             top = mod.split(".")
             assert top[0] not in ("jax", "jaxlib"), (f, mod)
-            if top[0] == "kogarashi_tpu" and len(top) > 1:
-                assert top[1] in ALLOWED, (f, mod)
+            if top[0] == "kogarashi_tpu":
+                assert len(top) > 1 and top[1] in ALLOWED, (f, mod)
 
 
 def test_chip_smoke_imports_only_the_port():
@@ -44,15 +44,20 @@ def test_chip_smoke_imports_only_the_port():
         assert mod.split(".")[0] not in ("jax", "jaxlib", "kogarashi_tpu"), mod
 
 
+def test_card_tests_import_only_the_port():
+    for mod in _imports(ROOT / "tests" / "test_torch_cuda.py"):
+        assert mod.split(".")[0] not in ("jax", "jaxlib", "kogarashi_tpu"), mod
+
+
 _BLOCKED_RUN = r"""
 import importlib, pkgutil, random, sys
 
-class BlockJax:
+class Block:
     def find_spec(self, name, path=None, target=None):
-        if name == "jax" or name.startswith(("jax.", "jaxlib")):
-            raise ImportError("jax is blocked")
+        if name in ("jax", "kogarashi_tpu") or name.startswith(("jax.", "jaxlib", "kogarashi_tpu.")):
+            raise ImportError(f"{name} is blocked")
 
-sys.meta_path.insert(0, BlockJax())
+sys.meta_path.insert(0, Block())
 import kogarashi_tpu_torch
 for m in pkgutil.walk_packages(kogarashi_tpu_torch.__path__, "kogarashi_tpu_torch."):
     importlib.import_module(m.name)
@@ -60,15 +65,18 @@ from kogarashi_tpu_torch.groth16 import SquareChainCircuit, setup
 
 circuit = SquareChainCircuit(16)
 cs = circuit.build()
-prover, verifier = setup(circuit, random.Random(1))
+prover, verifier = setup(circuit, random.Random(1), device="cpu")
 proof = prover.create_proof(circuit, random.Random(2))
 assert verifier.verify(proof, cs.x[1:])
-assert not any(k == "jax" or k.startswith("jax.") for k in sys.modules)
+assert not verifier.verify(proof, [cs.x[1], cs.x[2] + 1])
+assert not any(k.split(".")[0] in ("jax", "kogarashi_tpu") for k in sys.modules)
 print("PROVED")
 """
 
 
 def test_port_runs_with_jax_blocked():
+    """Both JAX and the JAX package blocked: the port imports, and proves and
+    verifies SquareChainCircuit(16) on the CPU."""
     env = dict(os.environ, PYTHONPATH=str(ROOT), OMP_NUM_THREADS="2")
     res = subprocess.run([sys.executable, "-c", _BLOCKED_RUN], cwd=ROOT, env=env,
                          capture_output=True, text=True, timeout=600)

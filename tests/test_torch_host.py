@@ -1,0 +1,163 @@
+"""The port's own host modules (constants, pyref, r1cs, interop) against the
+JAX package's, on the CPU, and the rule that the port's entry points run on
+the card unless a caller asks for the CPU. Points cross between the two
+packages by their integer coordinates: their pyref classes never compare
+equal."""
+
+import random
+
+import numpy as np
+import pytest
+import torch
+
+from kogarashi_tpu import constants as JC
+from kogarashi_tpu import pyref as jpyref
+from kogarashi_tpu.pyref import pairing_fast as jpairing
+from kogarashi_tpu.r1cs.vector import SquareChainCircuit as JSquareChainCircuit
+from kogarashi_tpu_torch import constants as C
+from kogarashi_tpu_torch import interop, pyref
+from kogarashi_tpu_torch.curves import G1, G2, encode_projective, prepare_points
+from kogarashi_tpu_torch.fields.spec import FQ, FR
+from kogarashi_tpu_torch.groth16 import SquareChainCircuit, setup
+from kogarashi_tpu_torch.ops import ntt, spmv
+from kogarashi_tpu_torch.ops.fixed_base import FixedBaseTable
+from kogarashi_tpu_torch.pyref import pairing_fast
+
+torch.set_num_threads(2)  # the suite runs several workers side by side
+
+CONSTANTS = ["Q", "R", "BN_X", "SIX_X_PLUS_2", "FR_S", "FR_T", "FQ_S", "FQ_T", "FR_GENERATOR",
+             "FQ_GENERATOR", "FR_ROOT_OF_UNITY", "FQ_ROOT_OF_UNITY", "G1_B", "G1_GEN",
+             "G2_GEN_X", "G2_GEN_Y", "FQ2_XI", "G2_B"]
+
+
+def test_constants_match_jax():
+    for name in CONSTANTS:
+        assert getattr(C, name) == getattr(JC, name), name
+
+
+@pytest.mark.parametrize("k", [2, 5, 8])
+def test_square_chain_matches_jax(k):
+    ours, theirs = SquareChainCircuit(1 << k).build(), JSquareChainCircuit(1 << k).build()
+    assert ours.z_ints() == theirs.z_ints()
+    assert (ours.m, ours.l(), ours.m_l_1()) == (theirs.m, theirs.l(), theirs.m_l_1())
+    for (r, c, v), (jr, jc, jv) in zip(ours.matrices_coo(), theirs.matrices_coo()):
+        assert np.array_equal(r, jr) and np.array_equal(c, jc)
+        assert [int(x) for x in v] == [int(x) for x in jv]
+
+
+def _jax_point(spec, q):
+    """The port's affine point -> the JAX package's, by coordinates."""
+    if q.is_infinity:
+        return spec.identity_affine()
+    make = spec.field if hasattr(q.x, "v") else spec.field.new
+    comps = (lambda v: (v.v,)) if hasattr(q.x, "v") else (lambda v: (v.c0.v, v.c1.v))
+    return jpyref.AffinePoint(spec, make(*comps(q.x)), make(*comps(q.y)), False)
+
+
+def _check(pkg, pairs):
+    """pkg's verdict on prod e(P_i, Q_i) == 1."""
+    loop = pkg.multi_miller_loop([(p, pkg.G2Prepared.from_affine(q)) for p, q in pairs])
+    return pkg.final_exp_fast(loop) == type(loop).one()
+
+
+def test_pairing_fast_matches_jax():
+    """e(aG1, bG2) e(-abG1, G2) == 1, and != 1 with ab + 1: the same verdict
+    from both packages on the same points."""
+    rng = random.Random(5)
+    a, b = rng.randrange(1, C.R), rng.randrange(1, C.R)
+    g1, g2 = pyref.G1_SPEC.generator, pyref.G2_SPEC.generator
+    for ab, want in ((a * b, True), (a * b + 1, False)):
+        pairs = [(a * g1, b * g2), (-(ab * g1), g2)]
+        jpairs = [(_jax_point(jpyref.G1_SPEC, p), _jax_point(jpyref.G2_SPEC, q)) for p, q in pairs]
+        assert _check(pairing_fast, pairs) == want
+        assert _check(jpairing, jpairs) == want
+
+
+def _jax_rows(curve, x, y):
+    """The port's affine words -> the JAX MSM's 13-bit R' = 2^260 rows."""
+    from kogarashi_tpu.fields import mont_pallas as M
+
+    def rows(words):
+        comps = [curve.spec.decode(words[8 * e: 8 * e + 8].numpy()) for e in range(curve.ext)]
+        return np.array([[l for c in cs for l in M.limbs13((c << 260) % C.Q, 20)]
+                         for cs in zip(*comps)], np.int32)
+
+    return rows(x), rows(y)
+
+
+def test_params_from_jax_verify_with_port_verifier():
+    """A JAX-package `Parameters` in the JAX layouts (its own pyref points,
+    13-bit R' = 2^260 query rows, 16-bit COO coefficients) -> params_from_jax.
+    The queries and matrices come out as the port's own encoding of the same
+    values, and the port's verifier on the converted key accepts a proof made
+    with the key's trapdoor (c = (ab - alpha beta - gamma acc) / delta) and
+    rejects a tampered public input."""
+    from kogarashi_tpu.fields.spec import FR as JFR
+    from kogarashi_tpu.groth16.keys import Parameters as JParameters, VerifyingKey as JVerifyingKey
+    from kogarashi_tpu.ops.spmv import r1cs_matrices_device
+    from kogarashi_tpu_torch.groth16 import Proof, Verifier
+
+    r, rng = C.R, random.Random(6)
+    cs = SquareChainCircuit(8).build()
+    alpha, beta, gamma, delta, a, b = (rng.randrange(1, r) for _ in range(6))
+    ic = [rng.randrange(1, r) for _ in range(cs.l())]
+    jg1, jg2 = jpyref.G1_SPEC.generator, jpyref.G2_SPEC.generator
+    jvk = JVerifyingKey(alpha * jg1, beta * jg1, beta * jg2, gamma * jg2, delta * jg1,
+                        delta * jg2, [s * jg1 for s in ic])
+
+    g1, g2 = pyref.G1_SPEC.generator, pyref.G2_SPEC.generator
+    pts = {G1: [k * g1 for k in range(1, 6)] + [pyref.G1_SPEC.identity_affine()],
+           G2: [k * g2 for k in range(1, 4)] + [pyref.G2_SPEC.identity_affine()]}
+    words = {curve: prepare_points(curve, q, "cpu") for curve, q in pts.items()}
+
+    def query(curve):
+        x, y, inf = words[curve]
+        return (*_jax_rows(curve, x, y), inf.numpy(), None)
+
+    jp = JParameters(vk=jvk, h=query(G1), l=query(G1), a=query(G1), b_g1=query(G1),
+                     b_g2=query(G2), l_pub=cs.l(), n=8, num_wires=cs.l() + cs.m_l_1(),
+                     mats=[{k: np.asarray(v) for k, v in m.items()} for m in r1cs_matrices_device(cs, JFR)])
+    port = interop.params_from_jax(jp, device="cpu")
+    for name, curve in (("h", G1), ("l", G1), ("a", G1), ("b_g1", G1), ("b_g2", G2)):
+        assert all(torch.equal(u, v) for u, v in zip(getattr(port, name), words[curve])), name
+    for got, want in zip(port.mats, spmv.r1cs_matrices(cs, FR, "cpu")):
+        assert all(torch.equal(got[k], want[k]) for k in ("row", "col", "coeff"))
+
+    x = cs.x[1:]
+    acc = (ic[0] + sum(xi * s for xi, s in zip(x, ic[1:]))) % r
+    c = (a * b - alpha * beta - gamma * acc) * pow(delta, -1, r) % r
+    verifier = Verifier(port.vk.prepare())
+    proof = Proof(a=a * g1, b=b * g2, c=c * g1)
+    assert verifier.verify(proof, x)
+    assert not verifier.verify(proof, [x[0], x[1] + 1])
+
+
+ENTRY_POINTS = {
+    "setup": lambda: setup(SquareChainCircuit(4), random.Random(1)),
+    "params_from_jax": lambda: interop.params_from_jax(None),
+    "query_from_jax": lambda: interop.query_from_jax(None, 1),
+    "from_mont260": lambda: interop.from_mont260(np.zeros((1, 20), np.int32), FQ),
+    "prepare_points": lambda: prepare_points(G1, [pyref.G1_SPEC.generator]),
+    "encode_projective": lambda: encode_projective(G1, [pyref.G1_SPEC.generator]),
+    "FixedBaseTable": lambda: FixedBaseTable(G1, c=1, bits=1),
+    "Domain": lambda: ntt.Domain(2),
+    "r1cs_matrices": lambda: spmv.r1cs_matrices(SquareChainCircuit(4).build(), FR),
+}
+
+
+@pytest.mark.parametrize("entry", list(ENTRY_POINTS))
+def test_entry_points_default_to_the_card(entry, monkeypatch):
+    """Without `device`, an entry point asks for the card and raises when
+    there is none; it never falls back to the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ENTRY_POINTS[entry]()
+
+
+def test_setup_without_device_raises_without_a_card():
+    """Decided here, not at import: on a machine with no CUDA device,
+    setup() without `device` raises."""
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a CUDA device")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        setup(SquareChainCircuit(4), random.Random(1))

@@ -59,7 +59,7 @@ def test_msm_vs_oracle(name, n, c):
     pts = [base[i % 32] for i in range(n)]  # heavy repetition
     pts[5] = pts[17] = curve.pyref_spec.identity_affine()
     ks = _scalars(n - 4, n) + [0, 0, 1, C.R - 1]
-    x, y, inf = prepare_points(curve, pts)
+    x, y, inf = prepare_points(curve, pts, "cpu")
     out = M.msm(curve, x, y, inf, torch.from_numpy(ints_to_limbs16(ks)), c=c)
     assert decode_points(curve, out)[0] == _oracle(pts, ks, curve)
 
@@ -67,7 +67,7 @@ def test_msm_vs_oracle(name, n, c):
 def test_msm_all_zero_scalars():
     g = G1.pyref_spec.generator
     pts = [k * g for k in range(1, 65)]
-    x, y, inf = prepare_points(G1, pts)
+    x, y, inf = prepare_points(G1, pts, "cpu")
     out = M.msm(G1, x, y, inf, torch.zeros((16, 64), dtype=torch.int32), c=8)
     assert decode_points(G1, out)[0].is_infinity
 
@@ -80,7 +80,7 @@ def test_prefix_and_reduce_rows():
     m, B = 300, 2
     rows = [[rng.randrange(C.R) * g for _ in range(m)] for _ in range(B)]
     rows[1][7] = G1.pyref_spec.identity_affine()
-    enc = [encode_projective(G1, r) for r in rows]
+    enc = [encode_projective(G1, r, "cpu") for r in rows]
     batch = tuple(torch.stack([e[k] for e in enc], dim=1) for k in range(3))
     pre = M.inclusive_prefix(G1, batch)
     tot = M.reduce_points(G1, batch)

@@ -30,14 +30,14 @@ def test_domain_matches_jax(op):
     rows = [_vals(1 << K, 1), _vals(1 << K, 2)]  # a batch axis, as the prover stacks A, B, C
     words = torch.stack([torch.from_numpy(FR.encode(r)) for r in rows], dim=1)  # (8, 2, n)
     jarr = jnp.stack([jnp.asarray(JFR.encode(r).T) for r in rows], axis=1)  # (16, 2, n)
-    got = getattr(ntt.Domain(K), op)(words)
+    got = getattr(ntt.Domain(K, device="cpu"), op)(words)
     with jax.disable_jit():
         want = getattr(jntt.Domain(K), op)(jarr)
     assert np.array_equal(got.numpy(), interop.words_from_limbs16(np.asarray(want)))
 
 
 def test_domain_roundtrip():
-    dom = ntt.Domain(K)
+    dom = ntt.Domain(K, device="cpu")
     x = torch.from_numpy(FR.encode(_vals(1 << K, 3)))
     assert torch.equal(dom.idft(dom.dft(x)), x)
     assert torch.equal(dom.coset_idft(dom.coset_dft(x)), x)
@@ -46,7 +46,7 @@ def test_domain_roundtrip():
 @pytest.mark.parametrize("transposed", [False, True], ids=["matvec", "transposed"])
 def test_spmv_matches_jax(transposed):
     cs = SquareChainCircuit(16).build()
-    mats = spmv.r1cs_matrices(cs, FR)
+    mats = spmv.r1cs_matrices(cs, FR, "cpu")
     jmats = jspmv.r1cs_matrices_device(cs, JFR)
     n_out, n_in = (cs.l() + cs.m_l_1(), cs.m) if transposed else (cs.m, cs.l() + cs.m_l_1())
     vec = _vals(n_in, 4)
