@@ -15,21 +15,32 @@ with the card's name and power limit beside it:
            among them
   msm      2^20 G1 MSM (bench.py's workload, c = 16) and a 2^16 G2 MSM
            against a host oracle; median of 3 with the host copy inside; the
-           G1 MSM's scan_proj (K2) shapes are recorded
+           scan_proj (K2) launches each MSM made, held against
+           ops/msm.py `scan_proj_launches`; the device time of each MSM's
+           window combine (15 x map_pdouble t = 16 + map_padd at one lane)
   ec       K1-K4 (scan_mixed, scan_proj, map_padd, map_pdouble) for G1 and
            G2 against their plain versions at the main path's shapes
-           (K2 at the two largest recorded shapes and at the scan's), exactly,
-           timed beside their bound (ops/ec.py `bound_ms`, at the SM clock
-           nvidia-smi reads under load); then the IMAD and IMAD.WIDE issue
-           rates, measured (csrc/imad_probe.cu), beside the rate the bound
-           assumes
+           (K2 at all 13 shapes of the 2^20 MSM and at the scan's; K4 at 1, 4
+           and 2^16 lanes), exactly, timed on the device (ops/ec.py
+           `device_ms`: launches queued behind a spin kernel, so the host's
+           launch overhead is not timed) beside their bound (ops/ec.py
+           `bound_ms`, at the SM clock nvidia-smi reads under load); K2 and K4
+           with the lane group g `ops/ec.py::lane_group` picks, K2 with its
+           launches per MSM and its time summed over one MSM, K4 at one lane
+           with its critical-path floor (levels x t x one dependent multiply's
+           cycles, csrc/imad_probe.cu, + an empty launch); then the IMAD and
+           IMAD.WIDE issue rates, measured (csrc/imad_probe.cu), beside the
+           rate the bound assumes
   groth16  SquareChainCircuit(2^20): setup -> prove -> verify on the card,
            a tampered public input rejected; the kernel launch counters of
-           this run must all be > 0
+           this run must all be > 0, and K2's and K4's by lane group
+           (`ec.GROUP_LAUNCHES`) for every group of K2 and K4's one-lane one
 The last lines are the kernels' JSON record (name, route, source, replaces,
 launches, max_abs_err, ms, plain_ms, bound_ms, bound_by, bound_share,
-library_ms, shape, times, and for K2 and K4 their other shapes), the card,
-and {"ok": true, "device": {...}}. Without a CUDA device it exits non-zero.
+library_ms, shape, times, g for K2 and K4, their other shapes, for K2 and K4
+launches_by_g, for K2 msm_sum_ms and msm_sum_bound_ms, for K4 at one lane
+floor_ms), the card, and
+{"ok": true, "device": {...}}. Without a CUDA device it exits non-zero.
 """
 
 from __future__ import annotations
@@ -65,18 +76,14 @@ def smi(query: str, fmt: str = "csv,noheader,nounits") -> str:
 
 
 def cuda_ms(fn, reps: int = 3) -> float:
-    """Mean device milliseconds of fn() over `reps` calls, after one warm-up."""
+    """Mean device milliseconds of fn() over `reps` calls in a row, queued
+    behind a spin kernel so that the host's launch overhead is not timed
+    (ops/ec.py `device_ms`)."""
     import torch
 
-    fn()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
+    from kogarashi_tpu_torch.ops.ec import device_ms
+
+    return device_ms(fn, torch.device("cuda", torch.cuda.current_device()), reps)
 
 
 def sm_clock_under_load(fn, seconds: float = 1.0) -> float:
@@ -92,23 +99,31 @@ def sm_clock_under_load(fn, seconds: float = 1.0) -> float:
     return mhz * 1e6
 
 
-def scan_proj_shapes(fn) -> list:
-    """The shapes of the scan_proj (K2) launches fn() makes, largest first."""
+def record_msm(fn):
+    """Run fn() (one MSM) and return the shapes of its scan_proj (K2)
+    launches, as [(shape, launches)] largest first, and the window sums its
+    window combine was given."""
     from kogarashi_tpu_torch.ops import ec
+    from kogarashi_tpu_torch.ops import msm as msm_mod
 
-    seen = []
-    real = ec.scan_proj
+    seen, window_sums = {}, []
+    real_scan, real_combine = ec.scan_proj, msm_mod.window_combine
 
-    def spy(curve, *xyz):
-        seen.append(tuple(xyz[0].shape))
-        return real(curve, *xyz)
+    def scan_spy(curve, *xyz):
+        shape = tuple(xyz[0].shape)
+        seen[shape] = seen.get(shape, 0) + 1
+        return real_scan(curve, *xyz)
 
-    ec.scan_proj = spy
+    def combine_spy(curve, G, c):
+        window_sums.append(G)
+        return real_combine(curve, G, c)
+
+    ec.scan_proj, msm_mod.window_combine = scan_spy, combine_spy
     try:
         fn()
     finally:
-        ec.scan_proj = real
-    return sorted(set(seen), key=lambda s: -s[1] * s[2])
+        ec.scan_proj, msm_mod.window_combine = real_scan, real_combine
+    return sorted(seen.items(), key=lambda kv: -kv[0][1] * kv[0][2]), window_sums[0]
 
 
 def timed(fn):
@@ -186,13 +201,16 @@ def random_points(curve, m: int, seed: int, dev):
     return proj, to_affine(curve, proj)
 
 
-def phase_ec(dev, card: str, log_n: int, windows: int, k2_shapes) -> dict:
+def phase_ec(dev, card: str, log_n: int, windows: int, k2_launches) -> dict:
     """K1-K4 against their plain versions, exactly, and timed, at the shapes
     of the main path: the scans at the 2^log_n MSM's (all windows side by
     side: L = scan depth, C = windows * n / L, each window a permutation of
-    the same points); K2 also at `k2_shapes`, those the MSM gave it; the maps
-    at 2^log_n lanes (setup's fixed-base adds); map_pdouble with t = 16 at the
-    window combine's one lane and at 2^16 lanes. Each entry's bound is
+    the same points); K2 at every shape the MSM gave it (`k2_launches`,
+    [(shape, launches per MSM)]), and its time and bound summed over one
+    MSM's launches; the maps at 2^log_n lanes (setup's fixed-base adds);
+    map_pdouble with t = 16 at the window combine's one lane, at 4 lanes and
+    at 2^16 lanes, and at one lane its critical-path floor. K2 and K4 run at
+    the lane group `ec.lane_group` picks (logged as g). Each entry's bound is
     ops.ec.bound_ms at the SM clock nvidia-smi reads under load."""
     import torch
 
@@ -205,6 +223,10 @@ def phase_ec(dev, card: str, log_n: int, windows: int, k2_shapes) -> dict:
     C = windows * n // L
     gen = torch.Generator(device="cpu").manual_seed(5)
     record, clock = {}, None
+    mul_cycles = {"g1": ec.mul_latency_cycles(dev, call=False), "g2": ec.mul_latency_cycles(dev, call=True)}
+    launch_ms = ec.empty_launch_ms(dev)
+    log("ec", f"one dependent multiply on one thread (csrc/imad_probe.cu): {mul_cycles['g1']:.1f} cycles "
+              f"inline (G1), {mul_cycles['g2']:.1f} as G2's call; an empty launch {launch_ms:.5f} ms ({card})")
     for curve, seed in ((G1, 1), (G2, 2)):
         rows = curve.rows
         proj, (ax, ay, _) = random_points(curve, n, seed, dev)
@@ -228,27 +250,25 @@ def phase_ec(dev, card: str, log_n: int, windows: int, k2_shapes) -> dict:
             q[k][:, 1] = negp[k][:, 0]
             p[k][:, 2] = ident[k][:, 0]
             q[k][:, 3] = ident[k][:, 0]
-        pd = tuple(t[:, :1].contiguous() for t in p)
-        pd_wide = tuple(t[:, : 1 << 16].contiguous() for t in p)
-        k2 = [(rows, *s[1:]) for s in k2_shapes]
-        # kernel -> [(shape, times, kernel call, plain call)]; the first is the entry's
+        pd = {m: tuple(t[:, :m].contiguous() for t in p) for m in (1, 4, 1 << 16)}
+        k2 = [((rows, *s[1:]), k) for s, k in k2_launches]
+        # kernel -> [(shape, times, kernel call, plain call, launches per MSM)]; the first is the entry's
         cases = {
             "scan_mixed": [((rows, L, C), 1, lambda: ec.scan_mixed(curve, *scan_aff),
-                            lambda: ec.scan_mixed_plain(curve, *scan_aff))],
+                            lambda: ec.scan_mixed_plain(curve, *scan_aff), None)],
             "scan_proj": [(s, 1, lambda a=cut(scan_prj, s): ec.scan_proj(curve, *a),
-                           lambda a=cut(scan_prj, s): ec.scan_proj_plain(curve, *a)) for s in k2]
+                           lambda a=cut(scan_prj, s): ec.scan_proj_plain(curve, *a), k) for s, k in k2]
                          + [((rows, L, C), 1, lambda: ec.scan_proj(curve, *scan_prj),
-                             lambda: ec.scan_proj_plain(curve, *scan_prj))],
+                             lambda: ec.scan_proj_plain(curve, *scan_prj), None)],
             "map_padd": [((rows, n), 1, lambda: ec.map_padd(curve, p, q),
-                          lambda: ec.map_padd_plain(curve, p, q))],
-            "map_pdouble": [((rows, 1), 16, lambda: ec.map_pdouble(curve, pd, times=16),
-                             lambda: ec.map_pdouble_plain(curve, pd, times=16)),
-                            ((rows, 1 << 16), 16, lambda: ec.map_pdouble(curve, pd_wide, times=16),
-                             lambda: ec.map_pdouble_plain(curve, pd_wide, times=16))],
+                          lambda: ec.map_padd_plain(curve, p, q), None)],
+            "map_pdouble": [((rows, m), 16, lambda a=pd[m]: ec.map_pdouble(curve, a, times=16),
+                             lambda a=pd[m]: ec.map_pdouble_plain(curve, a, times=16), None)
+                            for m in (1, 4, 1 << 16)],
         }
         for kname, runs in cases.items():
             measured = []
-            for shape, times, kern, plain in runs:
+            for shape, times, kern, plain, per_msm in runs:
                 want, plain_ms = timed(plain)
                 got, _ = timed(kern)
                 err = max_abs_err(got, want)
@@ -258,17 +278,38 @@ def phase_ec(dev, card: str, log_n: int, windows: int, k2_shapes) -> dict:
                 if clock is None:
                     clock = sm_clock_under_load(kern)
                     log("ec", f"SM clock under load {clock / 1e6:.0f} MHz ({card})")
-                ms = cuda_ms(kern)
+                ms = cuda_ms(kern, reps=10)
                 bound, by = ec.bound_ms(kname, curve, shape, clock, times)
-                measured.append(dict(shape=list(shape), times=times, max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                                     bound_ms=bound, bound_by=by, bound_share=bound / ms))
+                rec = dict(shape=list(shape), times=times, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                           bound_ms=bound, bound_by=by, bound_share=bound / ms)
+                extra = ""
+                if kname in ("scan_proj", "map_pdouble"):
+                    rec["g"] = ec.lane_group(kname, curve, shape[-1])
+                    extra = f", g={rec['g']}"
+                if per_msm is not None:
+                    rec["launches_per_msm"] = per_msm
+                    extra += f", {per_msm} per MSM"
+                if kname == "map_pdouble" and shape[-1] == 1:
+                    levels = ec.PDOUBLE_LEVELS[curve.name]
+                    rec["floor_ms"] = levels * times * mul_cycles[curve.name] / clock * 1e3 + launch_ms
+                    extra += (f", critical-path floor {rec['floor_ms']:.4f} ms ({levels} levels x t x "
+                              f"{mul_cycles[curve.name]:.1f} cycles + a launch)")
+                measured.append(rec)
                 log("ec", f"{kname}_{curve.name} {tuple(shape)} t={times}: exact; kernel {ms:.4f} ms, "
-                          f"bound {bound:.4f} ms ({by}), share {bound / ms:.3f}, plain {plain_ms:.3f} ms ({card})")
+                          f"bound {bound:.4f} ms ({by}), share {bound / ms:.3f}, plain {plain_ms:.3f} ms"
+                          f"{extra} ({card})")
             rec = dict(measured[0], library_ms=None)
             if len(measured) > 1:
                 rec["other_shapes"] = measured[1:]
+            if kname == "scan_proj":
+                per = [m for m in measured if "launches_per_msm" in m]
+                rec["msm_sum_ms"] = sum(m["ms"] * m["launches_per_msm"] for m in per)
+                rec["msm_sum_bound_ms"] = sum(m["bound_ms"] * m["launches_per_msm"] for m in per)
+                log("ec", f"scan_proj_{curve.name} over one 2^{log_n} MSM's {sum(m['launches_per_msm'] for m in per)} "
+                          f"launches at {len(per)} shapes: {rec['msm_sum_ms']:.4f} ms, bound "
+                          f"{rec['msm_sum_bound_ms']:.4f} ms, share {rec['msm_sum_bound_ms'] / rec['msm_sum_ms']:.3f} ({card})")
             record[f"{kname}_{curve.name}"] = rec
-        del scan_aff, scan_prj, p, q, pd, pd_wide, proj, cases
+        del scan_aff, scan_prj, p, q, pd, proj, cases
         torch.cuda.empty_cache()
     rates = ec.issue_rates(dev)
     log("ec", f"issue rates per SM per clock (csrc/imad_probe.cu): IMAD {rates['imad']:.2f}, "
@@ -286,7 +327,7 @@ def msm_check(curve, log_n: int, c, seed_pts: int, seed_sc: int, dev, card: str,
 
     from kogarashi_tpu_torch.curves import decode_points, prepare_points
     from kogarashi_tpu_torch.fields.spec import FR
-    from kogarashi_tpu_torch.ops.msm import default_window, msm
+    from kogarashi_tpu_torch.ops.msm import default_window, msm, scan_proj_launches, window_combine
 
     n, nd = 1 << log_n, 64
     r = FR.p
@@ -304,8 +345,11 @@ def msm_check(curve, log_n: int, c, seed_pts: int, seed_sc: int, dev, card: str,
     expected = (sum((e % r) * k for e, k in zip(eff, dk)) % r) * g
 
     c = c or default_window(n)
-    # first call: allocator and caches warm, and the K2 shapes recorded
-    k2_shapes = scan_proj_shapes(lambda: msm(curve, x, y, inf, scalars, c=c))
+    # first call: allocator and caches warm, the K2 shapes and the window sums recorded
+    k2_shapes, window_sums = record_msm(lambda: msm(curve, x, y, inf, scalars, c=c))
+    want_k2 = [((curve.rows, *lc), k) for lc, k in scan_proj_launches(n, c)]
+    if dict(k2_shapes) != dict(want_k2):
+        raise AssertionError(f"{curve.name} MSM: scan_proj launches {k2_shapes}, worked out {want_k2}")
     times = []
     for _ in range(reps):
         torch.cuda.synchronize()
@@ -319,13 +363,19 @@ def msm_check(curve, log_n: int, c, seed_pts: int, seed_sc: int, dev, card: str,
     adds = n * -(-256 // c) / med
     log("msm", f"{curve.name} n=2^{log_n} c={c}: oracle PASS; median {med:.4f} s of "
                f"{[round(t, 4) for t in times]}; {adds:.4e} point-adds/s ({card})")
-    log("msm", f"{curve.name} n=2^{log_n}: scan_proj shapes {k2_shapes}")
+    log("msm", f"{curve.name} n=2^{log_n}: scan_proj (shape, launches) {k2_shapes}, as "
+               f"msm.scan_proj_launches works them out")
+    combine_ms = cuda_ms(lambda: window_combine(curve, window_sums, c))
+    log("msm", f"{curve.name} n=2^{log_n}: window combine ({window_sums[0].shape[1] - 1} x map_pdouble "
+               f"t={c} + map_padd at one lane, with the slicing of the window sums) {combine_ms:.4f} ms "
+               f"device time ({card})")
     return med, adds, k2_shapes
 
 
-def phase_groth16(dev, card: str, log2_m: int) -> dict:
+def phase_groth16(dev, card: str, log2_m: int) -> tuple:
     import torch
 
+    from kogarashi_tpu_torch.curves import G1, G2
     from kogarashi_tpu_torch.groth16 import SquareChainCircuit, setup
     from kogarashi_tpu_torch.ops import ec
 
@@ -346,18 +396,25 @@ def phase_groth16(dev, card: str, log2_m: int) -> dict:
     ok = verifier.verify(proof, cs.x[1:])
     t_verify = time.perf_counter() - t0
     launches = dict(ec.LAUNCHES)
+    by_group = {k: dict(sorted(v.items())) for k, v in ec.GROUP_LAUNCHES.items()}
     bad = verifier.verify(proof, [cs.x[1], cs.x[2] + 1])
     if not ok:
         raise AssertionError("Groth16 proof does not verify")
     if bad:
         raise AssertionError("Groth16 verifier accepted a tampered public input")
+    # every kernel, every lane group of K2 (its 13 shapes span them) and K4's
+    # one-lane group (the window combine's)
+    want = [(f"scan_proj_{c.name}", g) for c in (G1, G2) for g in ec.groups("scan_proj", c)]
+    want += [(f"map_pdouble_{c.name}", ec.lane_group("map_pdouble", c, 1)) for c in (G1, G2)]
     missing = [k for k, v in launches.items() if v <= 0]
+    missing += [f"{k} g={g}" for k, g in want if by_group.get(k, {}).get(g, 0) <= 0]
     if missing:
         raise AssertionError(f"kernels not launched on the main path: {missing}")
     log("groth16", f"SquareChainCircuit(2^{log2_m}): setup {t_setup:.3f} s, prove {t_prove:.3f} s, "
                    f"verify {t_verify:.3f} s; verify True, tampered input rejected ({card})")
     log("groth16", f"launches: {json.dumps(launches)}")
-    return launches
+    log("groth16", f"K2 and K4 launches by lane group g: {json.dumps(by_group)}")
+    return launches, by_group
 
 
 def main() -> int:
@@ -390,16 +447,18 @@ def main() -> int:
     from kogarashi_tpu_torch.curves import G1, G2
 
     phase_field(dev, card)
-    _, _, k2_shapes = msm_check(G1, LOG2_MSM, 16, 0xBE7C4, 1, dev, card)
+    _, _, k2_launches = msm_check(G1, LOG2_MSM, 16, 0xBE7C4, 1, dev, card)
     msm_check(G2, 16, None, 0xBE7C5, 2, dev, card)
-    record = phase_ec(dev, card, LOG2_MSM, windows=16, k2_shapes=k2_shapes[:2])
-    launches = phase_groth16(dev, card, LOG2_CONSTRAINTS)
+    record = phase_ec(dev, card, LOG2_MSM, windows=16, k2_launches=k2_launches)
+    launches, by_group = phase_groth16(dev, card, LOG2_CONSTRAINTS)
 
     kernels = []
     for key, rec in record.items():
-        kernels.append(dict(name=key, route="cuda", source=EC_SOURCE,
-                            replaces=REPLACES[key.rsplit("_", 1)[0]],
-                            launches=launches[key], **rec))
+        entry = dict(name=key, route="cuda", source=EC_SOURCE, replaces=REPLACES[key.rsplit("_", 1)[0]],
+                     launches=launches[key], **rec)
+        if key in by_group:
+            entry["launches_by_g"] = by_group[key]
+        kernels.append(entry)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -44,14 +44,41 @@
 //     waves. SASS (G1): 2800 instructions a step, 1326 of them IMAD.WIDE
 //     (two multiply-adds each) and 182 other IMAD.
 //   K2 scan_proj (replaces `_scan_call(mixed=False)`): K1's loop with a
-//     projective point and padd (12 / 42 multiplies), no prefetch.
-//     153 / 252 registers.
+//     projective point and padd (12 / 42 multiplies), no prefetch. G1 takes
+//     32-bit word offsets, which keeps 64-bit address arithmetic off the IMAD
+//     pipe (0.162 -> 0.136 ms at (8, 8, 65552), PERF.md). 168 / 252
+//     registers. The MSM launches it 20 times at 13 shapes
+//     (ops/msm.py `scan_proj_launches`): at C >= 32768 (G1) or 16384 (G2) it
+//     fills the card and is bound by multiply-adds (0.64-0.73 of the bound);
+//     below, one thread per lane leaves SMs idle and the launch is bound by
+//     its chain of L dependent padds, so a lane runs on a lane group (below)
+//     of g = 2-8 (G1) or 8-16 (G2) threads. At the smallest shapes a launch
+//     then takes about 6.3 us (G1): the launch, two dependent loads of the
+//     chunk's points and 4 levels of multiplies.
 //   K3 map_padd (replaces `_map_call("padd")`): one thread per lane, six
 //     coordinate loads, padd (12 / 42 multiplies), three stores. 128 / 248
 //     registers, 4 / 2 blocks per SM; (rows, 2^20) is 8192 blocks, 15.5 / 31
 //     waves. SASS (G1): 3056 instructions.
 //   K4 map_pdouble (replaces `_map_call("pdouble:t")`): `times` doublings per
-//     thread (8 / 25 multiplies each). 108 / 198 registers.
+//     thread (8 / 25 multiplies each), 108 / 198 registers, at wide C. The
+//     MSM's window combine runs it at one lane, bound by one dependency chain:
+//     there it runs on a lane group of 4 (G1) or 16 (G2) threads, which
+//     shortens a doubling from 8 / 25 multiplies in a row to 2 / 3 levels of
+//     them. 64 / 141 registers. A level then takes about 3.4x (G1) / 4.7x
+//     (G2) one multiply's dependent latency (csrc/imad_probe.cu): the adds
+//     between levels and the exchange take the rest.
+//
+// Lane groups (K2, K4): one lane's point op on g threads of one warp, one
+// dependency level at a time. The level's independent base-field products
+// (an Fq2 multiply is three, a square two) are dealt out over the group; the
+// adds between levels run redundantly on each thread. G1 exchanges the
+// products by __shfl_sync (at most 6 a level), G2 through shared memory (up
+// to 18, two 16-byte loads each instead of 8 shuffles), as measured faster.
+// No thread returns before an exchange: a warp returns only when all its
+// lanes lie past C, and threads past C compute on lane C - 1 and store
+// nothing. A group never straddles a warp (g divides 32). ops/ec.py
+// `lane_group` picks g from measured thresholds; g = 1 is the one-thread
+// kernel. G2 at g = 2 and 4 spilled (136-276 bytes), so is not built.
 
 #include <cuda_runtime.h>
 
@@ -80,6 +107,14 @@ struct G1 {
   static constexpr int W = 8;
   static constexpr int kMinBlocks = 4;
   static constexpr int kScanMinBlocks = 1;
+  static constexpr bool kB3ByAdds = true;
+  // K2's word offsets: 32-bit (rows * L * C < 2^32, ops/ec.py checks), which
+  // keeps 64-bit address arithmetic off the IMAD pipe the multiply is bound by
+  typedef u32 ScanIndex;
+  // lane groups: products exchanged by shuffles (at most 6 a level); K4's
+  // group at one lane, one round a level
+  static constexpr bool kShuffle = true;
+  static constexpr int kPdoubleGroup = 4;
   // 9x = 8x + x
   __device__ __forceinline__ static A::E mul_b3(const A::E& x) {
     A::E x2 = A::add(x, x);
@@ -93,6 +128,13 @@ struct G2 {
   static constexpr int W = 16;
   static constexpr int kMinBlocks = 2;
   static constexpr int kScanMinBlocks = 1;
+  static constexpr bool kB3ByAdds = false;
+  // K2's word offsets: 64-bit (with 32-bit ones ptxas spills the one-thread K2)
+  typedef size_t ScanIndex;
+  // lane groups: products exchanged through shared memory (up to 18 a level,
+  // each two 16-byte loads instead of 8 shuffles); K4's group at one lane
+  static constexpr bool kShuffle = false;
+  static constexpr int kPdoubleGroup = 16;
   // b3 = 3b in Montgomery form
   __device__ __forceinline__ static A::E b3() {
     A::E r;
@@ -253,20 +295,21 @@ __global__ void __launch_bounds__(kThreads, Cv::kScanMinBlocks)
                      const u32* __restrict__ z, u32* __restrict__ ox, u32* __restrict__ oy,
                      u32* __restrict__ oz, int L, int C) {
   typedef typename Cv::A A;
+  typedef typename Cv::ScanIndex I;
   const int c = blockIdx.x * kThreads + threadIdx.x;
   if (c >= C) return;
-  const size_t plane = (size_t)L * C;
+  const I plane = (I)L * C;
   Proj<A> acc = identity<Cv>();
   for (int j = 0; j < L; j++) {
-    const size_t off = (size_t)j * C + c;
+    const I off = (I)j * C + c;
     Proj<A> q;
-    q.x = A::load(x, plane, off);
-    q.y = A::load(y, plane, off);
-    q.z = A::load(z, plane, off);
+    q.x = A::template load<I>(x, plane, off);
+    q.y = A::template load<I>(y, plane, off);
+    q.z = A::template load<I>(z, plane, off);
     acc = padd<Cv>(acc, q);
-    A::store(ox, plane, off, acc.x);
-    A::store(oy, plane, off, acc.y);
-    A::store(oz, plane, off, acc.z);
+    A::template store<I>(ox, plane, off, acc.x);
+    A::template store<I>(oy, plane, off, acc.y);
+    A::template store<I>(oz, plane, off, acc.z);
   }
 }
 
@@ -312,7 +355,372 @@ __global__ void __launch_bounds__(kThreads, Cv::kMinBlocks)
   A::store(oz, C, c, p.z);
 }
 
+// ---------------------------------------------------------------------------
+// Lane groups: K2 and K4 where one thread per lane leaves the card idle. One
+// lane's point op runs on G threads of one warp (G divides 32), one
+// dependency level of multiplies at a time: the level's independent base-field
+// products are dealt out over the group (thread `rank` takes products rank,
+// rank + G, ...), and every thread of the group receives all of them, by
+// `__shfl_sync` (G1) or through shared memory (G2), before the next level.
+// The adds between levels run redundantly on every thread. Every field op is
+// canonical, so the result is the one-thread kernel's, word for word.
+// ---------------------------------------------------------------------------
+
+// An algebra multiply as base-field products. Alg1: one. Alg2: Karatsuba's
+// three, or two for a square, in Alg2::mul's and Alg2::sqr's formulas.
+template <class A>
+struct Parts;
+
+template <class F>
+struct Parts<Alg1<F>> {
+  typedef Elem<8> E;
+  static constexpr int kMul = 1, kSqr = 1;
+  __device__ __forceinline__ static Elem<8> bmul(const Elem<8>& a, const Elem<8>& b) {
+    Elem<8> r;
+    fp_mul<F>(r.v, a.v, b.v);
+    return r;
+  }
+  __device__ __forceinline__ static void mul_in(Elem<8>* a, Elem<8>* b, const E& x, const E& y) {
+    a[0] = x;
+    b[0] = y;
+  }
+  __device__ __forceinline__ static void sqr_in(Elem<8>* a, Elem<8>* b, const E& x) {
+    mul_in(a, b, x, x);
+  }
+  __device__ __forceinline__ static E mul_out(const Elem<8>* m) { return m[0]; }
+  __device__ __forceinline__ static E sqr_out(const Elem<8>* m) { return m[0]; }
+  // words k with k % G == rank of e, to word planes a[k * plane + off]
+  template <int G, class I>
+  __device__ __forceinline__ static void store(u32* __restrict__ a, I plane, I off, const E& e,
+                                               int rank) {
+#pragma unroll
+    for (int k = 0; k < 8; k++)
+      if (k % G == rank) a[k * plane + off] = e.v[k];
+  }
+};
+
+template <class F>
+struct Parts<Alg2<F>> {
+  typedef Alg1<F> B;
+  typedef typename Alg2<F>::E E;
+  static constexpr int kMul = 3, kSqr = 2;
+  __device__ __forceinline__ static Elem<8> bmul(const Elem<8>& a, const Elem<8>& b) {
+    return fp_mul_call<F>(a, b);
+  }
+  __device__ __forceinline__ static void mul_in(Elem<8>* a, Elem<8>* b, const E& x, const E& y) {
+    a[0] = x.c0;
+    b[0] = y.c0;
+    a[1] = x.c1;
+    b[1] = y.c1;
+    a[2] = B::add(x.c0, x.c1);
+    b[2] = B::add(y.c0, y.c1);
+  }
+  __device__ __forceinline__ static void sqr_in(Elem<8>* a, Elem<8>* b, const E& x) {
+    a[0] = x.c0;
+    b[0] = x.c1;
+    a[1] = B::add(x.c0, x.c1);
+    b[1] = B::sub(x.c0, x.c1);
+  }
+  __device__ __forceinline__ static E mul_out(const Elem<8>* m) {
+    E r;
+    r.c0 = B::sub(m[0], m[1]);
+    r.c1 = B::sub(B::sub(m[2], m[0]), m[1]);
+    return r;
+  }
+  __device__ __forceinline__ static E sqr_out(const Elem<8>* m) {
+    E r;
+    r.c0 = m[1];
+    r.c1 = B::add(m[0], m[0]);
+    return r;
+  }
+  template <int G, class I>
+  __device__ __forceinline__ static void store(u32* __restrict__ a, I plane, I off, const E& e,
+                                               int rank) {
+#pragma unroll
+    for (int k = 0; k < 8; k++) {
+      if (k % G == rank) a[k * plane + off] = e.c0.v[k];
+      if ((k + 8) % G == rank) a[(k + 8) * plane + off] = e.c1.v[k];
+    }
+  }
+};
+
+// A thread's place in its lane's group: its rank, and the group's slots in
+// its warp's exchange buffer in shared memory, laid out [product][group of
+// the warp][2 x uint4], so product k of the group is ex[k * kStride], two
+// 16-byte words. S: exchange by __shfl_sync instead.
+template <int G, bool S>
+struct Group {
+  static constexpr int kStride = 2 * (32 / G);
+  int rank;
+  uint4* ex;
+};
+
+// One level: products m[k] = a[k] * b[k], k < N, on a group of G threads.
+// Thread `rank` selects its operands (word by word, no divergence) and makes
+// one multiply per round; each product goes to the exchange buffer as it is
+// made, and every thread of the group reads all N back.
+template <class A, int G, bool S, int N>
+__device__ __forceinline__ void level(Elem<8> (&m)[N], const Elem<8> (&a)[N],
+                                      const Elem<8> (&b)[N], const Group<G, S>& g) {
+  constexpr int R = (N + G - 1) / G;
+  auto mul = [&](int r) {
+    Elem<8> x = a[r * G], y = b[r * G];
+#pragma unroll
+    for (int j = 1; j < G; j++) {
+      const int k = r * G + j;
+      if (k < N) {
+        const bool take = g.rank == j;
+#pragma unroll
+        for (int w = 0; w < 8; w++) {
+          x.v[w] = take ? a[k].v[w] : x.v[w];
+          y.v[w] = take ? b[k].v[w] : y.v[w];
+        }
+      }
+    }
+    return Parts<A>::bmul(x, y);
+  };
+  if constexpr (S) {
+    Elem<8> mine[R];
+#pragma unroll
+    for (int r = 0; r < R; r++) mine[r] = mul(r);
+#pragma unroll
+    for (int k = 0; k < N; k++)
+#pragma unroll
+      for (int w = 0; w < 8; w++)
+        m[k].v[w] = __shfl_sync(0xffffffffu, mine[k / G].v[w], k % G, G);
+  } else {
+    __syncwarp();  // the group has read the previous level's products
+#pragma unroll
+    for (int r = 0; r < R; r++) {
+      const Elem<8> mine = mul(r);
+      const int k = r * G + g.rank;
+      if (k < N) {
+        uint4* s = g.ex + k * Group<G, S>::kStride;
+        s[0] = make_uint4(mine.v[0], mine.v[1], mine.v[2], mine.v[3]);
+        s[1] = make_uint4(mine.v[4], mine.v[5], mine.v[6], mine.v[7]);
+      }
+    }
+    __syncwarp();
+#pragma unroll
+    for (int k = 0; k < N; k++) {
+      const uint4 lo = g.ex[k * Group<G, S>::kStride], hi = g.ex[k * Group<G, S>::kStride + 1];
+      m[k] = Elem<8>{{lo.x, lo.y, lo.z, lo.w, hi.x, hi.y, hi.z, hi.w}};
+    }
+  }
+}
+
+// RCB16 Alg 7 on a group: G1 in 2 levels of 6 multiplies (its b3 products
+// are adds), G2 in 3 of 18, 6 and 18 base multiplies.
+template <class Cv, int G, bool S>
+__device__ __forceinline__ Proj<typename Cv::A> padd_group(const Proj<typename Cv::A>& p,
+                                                           const Proj<typename Cv::A>& q,
+                                                           const Group<G, S>& grp) {
+  typedef typename Cv::A A;
+  typedef typename A::E E;
+  typedef Parts<A> P;
+  constexpr int M = P::kMul;
+  Elem<8> a1[6 * M], b1[6 * M], m1[6 * M];
+  P::mul_in(a1, b1, p.x, q.x);
+  P::mul_in(a1 + M, b1 + M, p.y, q.y);
+  P::mul_in(a1 + 2 * M, b1 + 2 * M, p.z, q.z);
+  P::mul_in(a1 + 3 * M, b1 + 3 * M, A::add(p.x, p.y), A::add(q.x, q.y));
+  P::mul_in(a1 + 4 * M, b1 + 4 * M, A::add(p.y, p.z), A::add(q.y, q.z));
+  P::mul_in(a1 + 5 * M, b1 + 5 * M, A::add(p.x, p.z), A::add(q.x, q.z));
+  level<A, G, S>(m1, a1, b1, grp);
+  E t0 = P::mul_out(m1), t1 = P::mul_out(m1 + M), t2 = P::mul_out(m1 + 2 * M);
+  E t3 = A::sub(A::sub(P::mul_out(m1 + 3 * M), t0), t1);
+  E t4 = A::sub(A::sub(P::mul_out(m1 + 4 * M), t1), t2);
+  E t5 = A::sub(A::sub(P::mul_out(m1 + 5 * M), t0), t2);
+  E t6 = A::add(A::add(t0, t0), t0);
+  E t2b3, y5;
+  if constexpr (Cv::kB3ByAdds) {
+    t2b3 = Cv::mul_b3(t2);
+    y5 = Cv::mul_b3(t5);
+  } else {
+    Elem<8> a2[2 * M], b2[2 * M], m2[2 * M];
+    P::mul_in(a2, b2, t2, Cv::b3());
+    P::mul_in(a2 + M, b2 + M, t5, Cv::b3());
+    level<A, G, S>(m2, a2, b2, grp);
+    t2b3 = P::mul_out(m2);
+    y5 = P::mul_out(m2 + M);
+  }
+  E zz = A::add(t1, t2b3);
+  E tt = A::sub(t1, t2b3);
+  Elem<8> a3[6 * M], b3[6 * M], m3[6 * M];
+  P::mul_in(a3, b3, t3, tt);
+  P::mul_in(a3 + M, b3 + M, t4, y5);
+  P::mul_in(a3 + 2 * M, b3 + 2 * M, y5, t6);
+  P::mul_in(a3 + 3 * M, b3 + 3 * M, tt, zz);
+  P::mul_in(a3 + 4 * M, b3 + 4 * M, zz, t4);
+  P::mul_in(a3 + 5 * M, b3 + 5 * M, t6, t3);
+  level<A, G, S>(m3, a3, b3, grp);
+  Proj<A> r;
+  r.x = A::sub(P::mul_out(m3), P::mul_out(m3 + M));
+  r.y = A::add(P::mul_out(m3 + 2 * M), P::mul_out(m3 + 3 * M));
+  r.z = A::add(P::mul_out(m3 + 4 * M), P::mul_out(m3 + 5 * M));
+  return r;
+}
+
+// RCB16 Alg 9 on a group. G1: y^2, z^2, y z, x y; then b3 z^2 by adds; then
+// the four products of t2 = b3 z^2 and t0 = y^2: 2 levels of 4 multiplies.
+// G2: the first level's 10 base multiplies; b3 z^2 and (y z) 8y^2 (6); the
+// other three products (9): 3 levels.
+template <class Cv, int G, bool S>
+__device__ __forceinline__ Proj<typename Cv::A> pdouble_group(const Proj<typename Cv::A>& p,
+                                                              const Group<G, S>& grp) {
+  typedef typename Cv::A A;
+  typedef typename A::E E;
+  typedef Parts<A> P;
+  constexpr int M = P::kMul, Q = P::kSqr;
+  constexpr int N1 = 2 * Q + 2 * M;
+  Elem<8> a1[N1], b1[N1], m1[N1];
+  P::sqr_in(a1, b1, p.y);
+  P::sqr_in(a1 + Q, b1 + Q, p.z);
+  P::mul_in(a1 + 2 * Q, b1 + 2 * Q, p.y, p.z);
+  P::mul_in(a1 + 2 * Q + M, b1 + 2 * Q + M, p.x, p.y);
+  level<A, G, S>(m1, a1, b1, grp);
+  E t0 = P::sqr_out(m1), zsq = P::sqr_out(m1 + Q);
+  E t1 = P::mul_out(m1 + 2 * Q), xy = P::mul_out(m1 + 2 * Q + M);
+  E z8 = A::add(t0, t0);
+  z8 = A::add(z8, z8);
+  z8 = A::add(z8, z8);  // 8 y^2
+  Proj<A> r;
+  E t2;
+  if constexpr (Cv::kB3ByAdds) {
+    t2 = Cv::mul_b3(zsq);
+  } else {
+    Elem<8> a2[2 * M], b2[2 * M], m2[2 * M];
+    P::mul_in(a2, b2, zsq, Cv::b3());
+    P::mul_in(a2 + M, b2 + M, t1, z8);
+    level<A, G, S>(m2, a2, b2, grp);
+    t2 = P::mul_out(m2);
+    r.z = P::mul_out(m2 + M);
+  }
+  E y3 = A::add(t0, t2);
+  t0 = A::sub(t0, A::add(A::add(t2, t2), t2));
+  constexpr int N3 = Cv::kB3ByAdds ? 4 * M : 3 * M;
+  Elem<8> a3[N3], b3[N3], m3[N3];
+  P::mul_in(a3, b3, t2, z8);
+  P::mul_in(a3 + M, b3 + M, t0, y3);
+  P::mul_in(a3 + 2 * M, b3 + 2 * M, t0, xy);
+  if constexpr (Cv::kB3ByAdds) P::mul_in(a3 + 3 * M, b3 + 3 * M, t1, z8);
+  level<A, G, S>(m3, a3, b3, grp);
+  if constexpr (Cv::kB3ByAdds) r.z = P::mul_out(m3 + 3 * M);
+  r.y = A::add(P::mul_out(m3 + M), P::mul_out(m3));
+  E xf = P::mul_out(m3 + 2 * M);
+  r.x = A::add(xf, xf);
+  return r;
+}
+
+// Products a level exchanges at most: K2's padd 6 algebra multiplies, K4's
+// doubling two squares and two multiplies.
+template <class Cv>
+struct MaxProducts {
+  typedef Parts<typename Cv::A> P;
+  static constexpr int kPadd = 6 * P::kMul, kPdouble = 2 * P::kSqr + 2 * P::kMul;
+};
+
+// The lane of thread t, and its place in the lane's group. A warp whose
+// lanes all lie at or past C returns at once; in any other warp every thread
+// stays through the exchanges, those past C on lane C - 1's words, and
+// stores nothing. `ex`: the warp's exchange buffer.
+template <int G, bool S>
+struct GroupLane {
+  int lane, c;
+  bool warp_idle;
+  Group<G, S> grp;
+  __device__ __forceinline__ GroupLane(int C, uint4* ex) {
+    const int t = blockIdx.x * kThreads + threadIdx.x;
+    lane = t / G;
+    c = lane < C ? lane : C - 1;
+    warp_idle = (t & ~31) / G >= C;
+    grp.rank = t % G;
+    grp.ex = ex + 2 * ((threadIdx.x % 32) / G);
+  }
+};
+
+// K2 on lane groups.
+template <class Cv, int G>
+__global__ void __launch_bounds__(kThreads, Cv::kScanMinBlocks)
+    scan_proj_group_kernel(const u32* __restrict__ x, const u32* __restrict__ y,
+                           const u32* __restrict__ z, u32* __restrict__ ox,
+                           u32* __restrict__ oy, u32* __restrict__ oz, int L, int C) {
+  typedef typename Cv::A A;
+  typedef Parts<A> P;
+  constexpr bool S = Cv::kShuffle;  // no exchange buffer then
+  __shared__ uint4 ex[kThreads / 32][S ? 1 : MaxProducts<Cv>::kPadd * Group<G, S>::kStride];
+  const GroupLane<G, S> g(C, ex[threadIdx.x / 32]);
+  if (g.warp_idle) return;
+  typedef typename Cv::ScanIndex I;
+  const I plane = (I)L * C;
+  Proj<A> acc = identity<Cv>();
+  for (int j = 0; j < L; j++) {
+    const I off = (I)j * C + g.c;
+    Proj<A> q;
+    q.x = A::template load<I>(x, plane, off);
+    q.y = A::template load<I>(y, plane, off);
+    q.z = A::template load<I>(z, plane, off);
+    acc = padd_group<Cv, G, S>(acc, q, g.grp);
+    if (g.lane < C) {
+      P::template store<G>(ox, plane, off, acc.x, g.grp.rank);
+      P::template store<G>(oy, plane, off, acc.y, g.grp.rank);
+      P::template store<G>(oz, plane, off, acc.z, g.grp.rank);
+    }
+  }
+}
+
+// K4 on lane groups.
+template <class Cv, int G>
+__global__ void __launch_bounds__(kThreads, 1)
+    pdouble_group_kernel(const u32* __restrict__ x, const u32* __restrict__ y,
+                         const u32* __restrict__ z, u32* __restrict__ ox, u32* __restrict__ oy,
+                         u32* __restrict__ oz, int C, int times) {
+  typedef typename Cv::A A;
+  typedef Parts<A> P;
+  constexpr bool S = Cv::kShuffle;  // no exchange buffer then
+  __shared__ uint4 ex[kThreads / 32][S ? 1 : MaxProducts<Cv>::kPdouble * Group<G, S>::kStride];
+  const GroupLane<G, S> g(C, ex[threadIdx.x / 32]);
+  if (g.warp_idle) return;
+  Proj<A> p;
+  p.x = A::load(x, C, g.c);
+  p.y = A::load(y, C, g.c);
+  p.z = A::load(z, C, g.c);
+  for (int t = 0; t < times; t++) p = pdouble_group<Cv, G, S>(p, g.grp);
+  if (g.lane < C) {
+    P::template store<G>(ox, C, g.c, p.x, g.grp.rank);
+    P::template store<G>(oy, C, g.c, p.y, g.grp.rank);
+    P::template store<G>(oz, C, g.c, p.z, g.grp.rank);
+  }
+}
+
 inline int blocks(int C) { return (C + kThreads - 1) / kThreads; }
+
+typedef void (*ScanProjKernel)(const u32*, const u32*, const u32*, u32*, u32*, u32*, int, int);
+typedef void (*PdoubleKernel)(const u32*, const u32*, const u32*, u32*, u32*, u32*, int, int);
+
+// K2 and K4 at group size g (1: the one-thread kernels): the sizes some
+// shape of the main path picks (ops/ec.py LANE_GROUPS), and no other;
+// nullptr for any other g.
+template <class Cv>
+ScanProjKernel scan_proj_at(int g) {
+  if (g == 1) return scan_proj_kernel<Cv>;
+  if constexpr (Cv::W == 8) {
+    if (g == 2) return scan_proj_group_kernel<Cv, 2>;
+    if (g == 4) return scan_proj_group_kernel<Cv, 4>;
+    if (g == 8) return scan_proj_group_kernel<Cv, 8>;
+  } else {
+    if (g == 8) return scan_proj_group_kernel<Cv, 8>;
+    if (g == 16) return scan_proj_group_kernel<Cv, 16>;
+  }
+  return nullptr;
+}
+
+template <class Cv>
+PdoubleKernel pdouble_at(int g) {
+  if (g == 1) return pdouble_kernel<Cv>;
+  if (g == Cv::kPdoubleGroup) return pdouble_group_kernel<Cv, Cv::kPdoubleGroup>;
+  return nullptr;
+}
 
 }  // namespace kt
 
@@ -326,9 +734,11 @@ using namespace kt;
     return (int)cudaGetLastError();                                                     \
   }                                                                                     \
   extern "C" int kt_scan_proj_##NAME(const void* x, const void* y, const void* z,       \
-                                     void* ox, void* oy, void* oz, int L, int C,        \
+                                     void* ox, void* oy, void* oz, int L, int C, int g, \
                                      void* stream) {                                    \
-    scan_proj_kernel<CV><<<blocks(C), kThreads, 0, (cudaStream_t)stream>>>(             \
+    const ScanProjKernel k = scan_proj_at<CV>(g);                                       \
+    if (!k) return (int)cudaErrorInvalidValue;                                          \
+    k<<<blocks(C * g), kThreads, 0, (cudaStream_t)stream>>>(                  \
         (const u32*)x, (const u32*)y, (const u32*)z, (u32*)ox, (u32*)oy, (u32*)oz, L,   \
         C);                                                                             \
     return (int)cudaGetLastError();                                                     \
@@ -343,8 +753,10 @@ using namespace kt;
   }                                                                                     \
   extern "C" int kt_map_pdouble_##NAME(const void* x, const void* y, const void* z,     \
                                        void* ox, void* oy, void* oz, int C, int times,  \
-                                       void* stream) {                                  \
-    pdouble_kernel<CV><<<blocks(C), kThreads, 0, (cudaStream_t)stream>>>(               \
+                                       int g, void* stream) {                           \
+    const PdoubleKernel k = pdouble_at<CV>(g);                                          \
+    if (!k) return (int)cudaErrorInvalidValue;                                          \
+    k<<<blocks(C * g), kThreads, 0, (cudaStream_t)stream>>>(                    \
         (const u32*)x, (const u32*)y, (const u32*)z, (u32*)ox, (u32*)oy, (u32*)oz, C,   \
         times);                                                                         \
     return (int)cudaGetLastError();                                                     \

@@ -309,6 +309,12 @@ __device__ __forceinline__ void fp_neg(u32* r, const u32* a) {
 // stays in a register.
 // ---------------------------------------------------------------------------
 
+// T, in a parameter that must not deduce a template argument
+template <class T>
+struct Given {
+  typedef T type;
+};
+
 template <int W>
 struct Elem {
   u32 v[W];
@@ -346,14 +352,20 @@ struct Alg1 {
     for (int j = 0; j < 8; j++) r.v[j] = F::one(j);
     return r;
   }
-  __device__ __forceinline__ static E load(const u32* __restrict__ a, size_t plane, size_t off) {
+  // word k at a[k * plane + off]; I: the offsets' type, size_t unless a
+  // caller that knows the words number less than 2^32 asks for u32
+  template <class I = size_t>
+  __device__ __forceinline__ static E load(const u32* __restrict__ a,
+                                           typename Given<I>::type plane,
+                                           typename Given<I>::type off) {
     E e;
 #pragma unroll
     for (int k = 0; k < 8; k++) e.v[k] = a[k * plane + off];
     return e;
   }
-  __device__ __forceinline__ static void store(u32* __restrict__ a, size_t plane, size_t off,
-                                               const E& e) {
+  template <class I = size_t>
+  __device__ __forceinline__ static void store(u32* __restrict__ a, typename Given<I>::type plane,
+                                               typename Given<I>::type off, const E& e) {
 #pragma unroll
     for (int k = 0; k < 8; k++) a[k * plane + off] = e.v[k];
   }
@@ -423,16 +435,20 @@ struct Alg2 {
     r.c1 = B::zero();
     return r;
   }
-  __device__ __forceinline__ static E load(const u32* __restrict__ a, size_t plane, size_t off) {
+  template <class I = size_t>
+  __device__ __forceinline__ static E load(const u32* __restrict__ a,
+                                           typename Given<I>::type plane,
+                                           typename Given<I>::type off) {
     E e;
-    e.c0 = B::load(a, plane, off);
-    e.c1 = B::load(a + 8 * plane, plane, off);
+    e.c0 = B::template load<I>(a, plane, off);
+    e.c1 = B::template load<I>(a + 8 * plane, plane, off);
     return e;
   }
-  __device__ __forceinline__ static void store(u32* __restrict__ a, size_t plane, size_t off,
-                                               const E& e) {
-    B::store(a, plane, off, e.c0);
-    B::store(a + 8 * plane, plane, off, e.c1);
+  template <class I = size_t>
+  __device__ __forceinline__ static void store(u32* __restrict__ a, typename Given<I>::type plane,
+                                               typename Given<I>::type off, const E& e) {
+    B::template store<I>(a, plane, off, e.c0);
+    B::template store<I>(a + 8 * plane, plane, off, e.c1);
   }
 };
 

@@ -18,6 +18,15 @@
 //   instructions per SM per clock = blocks_per_sm * kProbeThreads * iters
 //                                   * per_round / (the longest thread's cycles),
 // which, with the longest thread, can only understate the rate.
+//
+// Latency, for the critical-path floor of the one-lane shapes (chip_smoke.py):
+// `mul_latency_kernel` is one thread running a chain of dependent Montgomery
+// multiplies over Fq, a = a * b, inline (fp_mul, as G1's kernels run it) or
+// through fp_mul_call (as G2's do), timed with clock64(); `empty_kernel`
+// does nothing, for the time of a launch. `spin_kernel` holds its stream for
+// a number of clock cycles, so that the host can queue the launches a timing
+// measures behind it and the device time between two events is not the
+// host's launch overhead (ops/ec.py `device_ms`).
 
 #include <cuda_runtime.h>
 
@@ -83,6 +92,44 @@ __global__ void __launch_bounds__(kProbeThreads)
   cycles[gid] = t1 - t0;
 }
 
+template <bool kCall>
+__global__ void mul_latency_kernel(u32* __restrict__ sink, long long* __restrict__ cycles,
+                                   int iters) {
+  Elem<8> a, b;
+#pragma unroll
+  for (int k = 0; k < 8; k++) {
+    a.v[k] = 0x1234567u * (k + 1);
+    b.v[k] = 0x89abcdeu * (k + 3);
+  }
+  a.v[7] &= 0x0fffffffu;  // below q
+  b.v[7] &= 0x0fffffffu;
+  const long long t0 = clock64();
+#pragma unroll 1
+  for (int i = 0; i < iters; i++) {
+    if (kCall) {
+      a = fp_mul_call<Fq>(a, b);
+    } else {
+      Elem<8> r;
+      fp_mul<Fq>(r.v, a.v, b.v);
+      a = r;
+    }
+  }
+  const long long t1 = clock64();
+  u32 s = 0;
+#pragma unroll
+  for (int k = 0; k < 8; k++) s ^= a.v[k];
+  sink[0] = s;
+  cycles[0] = t1 - t0;
+}
+
+__global__ void empty_kernel() {}
+
+__global__ void spin_kernel(long long cycles) {
+  const long long t0 = clock64();
+  while (clock64() - t0 < cycles) {
+  }
+}
+
 }  // namespace kt
 
 using namespace kt;
@@ -103,5 +150,22 @@ extern "C" int kt_imad_probe(int mode, int iters, int blocks, void* sink, void* 
   auto kernel = mode == 0 ? imad_probe_kernel : imad_wide_probe_kernel;
   kernel<<<blocks, kProbeThreads, 0, (cudaStream_t)stream>>>((u32*)sink, (long long*)cycles,
                                                              iters);
+  return (int)cudaGetLastError();
+}
+
+// sink: 1 u32, cycles: 1 int64; call 0: inline fp_mul, 1: fp_mul_call.
+extern "C" int kt_mul_latency(int call, int iters, void* sink, void* cycles, void* stream) {
+  auto kernel = call ? mul_latency_kernel<true> : mul_latency_kernel<false>;
+  kernel<<<1, 1, 0, (cudaStream_t)stream>>>((u32*)sink, (long long*)cycles, iters);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int kt_empty(void* stream) {
+  empty_kernel<<<1, 1, 0, (cudaStream_t)stream>>>();
+  return (int)cudaGetLastError();
+}
+
+extern "C" int kt_spin(long long cycles, void* stream) {
+  spin_kernel<<<1, 1, 0, (cudaStream_t)stream>>>(cycles);
   return (int)cudaGetLastError();
 }

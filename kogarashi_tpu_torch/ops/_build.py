@@ -30,12 +30,14 @@ P = ctypes.c_void_p
 I = ctypes.c_int
 _SIGNATURES = {
     "kt_scan_mixed_{c}": [P, P, P, P, P, I, I, P],
-    "kt_scan_proj_{c}": [P, P, P, P, P, P, I, I, P],
+    "kt_scan_proj_{c}": [P, P, P, P, P, P, I, I, I, P],
     "kt_map_padd_{c}": [P, P, P, P, P, P, P, P, P, I, P],
-    "kt_map_pdouble_{c}": [P, P, P, P, P, P, I, I, P],
+    "kt_map_pdouble_{c}": [P, P, P, P, P, P, I, I, I, P],
 }
 _FIELD_SIGNATURE = [P, P, P, I, I, P]
-_PROBE_SIGNATURES = {"kt_imad_probe_info": [I, P], "kt_imad_probe": [I, I, I, P, P, P]}
+_PROBE_SIGNATURES = {"kt_imad_probe_info": [I, P], "kt_imad_probe": [I, I, I, P, P, P],
+                     "kt_mul_latency": [I, I, P, P, P], "kt_empty": [P],
+                     "kt_spin": [ctypes.c_longlong, P]}
 
 
 def _sources():
@@ -139,16 +141,19 @@ def sass_report() -> list[str]:
             if m.group(1) == "IMAD" and (m.group(2) or "").startswith((".WIDE", ".MOV")):
                 counts[name]["IMAD." + m.group(2).split(".")[1]] += 1
     return [f"{k}: {c['all']} instructions, IMAD {c['IMAD']} (WIDE {c['IMAD.WIDE']}, "
-            f"MOV {c['IMAD.MOV']}), IADD3 {c['IADD3']}, SEL {c['SEL']}, LDG {c['LDG']}, "
-            f"LDGSTS {c['LDGSTS']}, LDS {c['LDS']}, STG {c['STG']}"
+            f"MOV {c['IMAD.MOV']}), IADD3 {c['IADD3']}, SEL {c['SEL']}, SHFL {c['SHFL']}, "
+            f"LDG {c['LDG']}, LDGSTS {c['LDGSTS']}, LDS {c['LDS']}, STS {c['STS']}, STG {c['STG']}"
             for k, c in counts.items()]
 
 
 def _demangle(name: str) -> str:
-    for kern in ("scan_mixed_kernel", "scan_proj_kernel", "padd_kernel", "pdouble_kernel",
-                 "field_op_kernel", "fp_mul_call", "imad_wide_probe_kernel", "imad_probe_kernel"):
+    for kern in ("scan_mixed_kernel", "scan_proj_group_kernel", "scan_proj_kernel",
+                 "pdouble_group_kernel", "padd_kernel", "pdouble_kernel", "field_op_kernel",
+                 "fp_mul_call", "imad_wide_probe_kernel", "imad_probe_kernel",
+                 "mul_latency_kernel", "empty_kernel", "spin_kernel"):
         if kern in name:
             tags = [t for t in ("G1", "G2", "Fq", "Fr") if t in name]
+            tags += re.findall(r"Li(\d+)E", name) + re.findall(r"Lb([01])E", name)
             return f"{kern}<{','.join(tags)}>" if tags else kern
     return name
 

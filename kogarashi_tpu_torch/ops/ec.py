@@ -11,13 +11,14 @@ elements 0..j; maps take (rows, C). rows = 8 (G1) or 16 (G2); int32 words in
 Montgomery form, canonical in and out.
 
 Dispatch: a CUDA tensor launches the kernel (and counts the launch in
-`LAUNCHES`); a CPU tensor runs the plain version. There is no fallback from
-one to the other.
+`LAUNCHES`, K2's and K4's also by lane group in `GROUP_LAUNCHES`); a CPU
+tensor runs the plain version. There is no fallback from one to the other.
 """
 
 from __future__ import annotations
 
 import ctypes
+import time
 
 import torch
 
@@ -27,11 +28,13 @@ from . import _build
 
 KERNELS = ("scan_mixed", "scan_proj", "map_padd", "map_pdouble")
 LAUNCHES: dict = {f"{k}_{c}": 0 for k in KERNELS for c in ("g1", "g2")}
+GROUP_LAUNCHES: dict = {}  # "scan_proj_g1" -> {g: launches}, K2 and K4
 
 
 def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+    GROUP_LAUNCHES.clear()
 
 
 # ---------------------------------------------------------------------------
@@ -175,13 +178,56 @@ def _check(curve: Curve, ts, ndim: int):
     raise ValueError(f"unsupported device {dev}")
 
 
-def _launch(kernel: str, curve: Curve, ins, outs, *ints):
+# ---------------------------------------------------------------------------
+# lane groups (csrc/ec.cu): K2 and K4 spread one lane's point op over g
+# threads of a warp where one thread per lane would leave the card idle
+# ---------------------------------------------------------------------------
+
+# (kernel, curve) -> ((C at least, g), ...): a launch over C lanes takes the g
+# of the first row whose bound C meets. The rows come from timing every g at
+# each shape of the main path on an H100 (`profile_lanes.py`, PERF.md); each
+# g named here is built in csrc/ec.cu, and no other (1: the one-thread kernel).
+LANE_GROUPS = {
+    ("scan_proj", "g1"): ((32768, 1), (8192, 2), (4096, 4), (0, 8)),
+    ("scan_proj", "g2"): ((16384, 1), (2048, 8), (0, 16)),
+    ("map_pdouble", "g1"): ((8192, 1), (0, 4)),
+    ("map_pdouble", "g2"): ((8192, 1), (0, 16)),
+}
+
+
+def groups(kernel: str, curve: Curve) -> tuple:
+    """The group sizes built for a kernel and curve, smallest first."""
+    return tuple(sorted(g for _, g in LANE_GROUPS[(kernel, curve.name)]))
+
+
+def lane_group(kernel: str, curve: Curve, C: int) -> int:
+    """Threads per lane for a K2 or K4 launch over C lanes (LANE_GROUPS)."""
+    return next(g for least, g in LANE_GROUPS[(kernel, curve.name)] if C >= least)
+
+
+def _group(kernel: str, curve: Curve, C: int, group):
+    g = lane_group(kernel, curve, C) if group is None else group
+    if g not in groups(kernel, curve):
+        raise ValueError(f"{kernel}_{curve.name}: no lane group of {g} threads "
+                         f"(built: {groups(kernel, curve)})")
+    return g
+
+
+def _launch(kernel: str, curve: Curve, ins, outs, *ints, group: int | None = None):
+    """One launch of kernel_curve; `group`: K2's and K4's lane group, passed
+    after the other ints and counted in GROUP_LAUNCHES."""
+    key = f"{kernel}_{curve.name}"
+    if group is not None:
+        ints += (group,)
     with torch.cuda.device(ins[0].device):
         stream = torch.cuda.current_stream().cuda_stream
-        fn = getattr(_build.lib(), f"kt_{kernel}_{curve.name}")
+        fn = getattr(_build.lib(), f"kt_{key}")
         rc = fn(*[t.data_ptr() for t in ins], *[t.data_ptr() for t in outs], *ints, stream)
-    _build.check(rc, f"{kernel}_{curve.name}")
-    LAUNCHES[f"{kernel}_{curve.name}"] += 1
+    _build.check(rc, key)
+    LAUNCHES[key] += 1
+    if group is not None:
+        by = GROUP_LAUNCHES.setdefault(key, {})
+        by[group] = by.get(group, 0) + 1
 
 
 def _empty3(like):
@@ -199,14 +245,19 @@ def scan_mixed(curve: Curve, x, y):
     return out
 
 
-def scan_proj(curve: Curve, x, y, z):
-    """K2. Per-chunk inclusive scan of projective adds; (rows, L, C) each."""
-    if not _check(curve, (x, y, z), 3):
+def scan_proj(curve: Curve, x, y, z, group: int | None = None):
+    """K2. Per-chunk inclusive scan of projective adds; (rows, L, C) each.
+    `group`: threads per lane, by default `lane_group`'s."""
+    on_card = _check(curve, (x, y, z), 3)
+    rows, L, C = x.shape
+    if rows * L * C >= 1 << 32:
+        raise ValueError(f"scan_proj: {tuple(x.shape)} has 2^32 words or more (32-bit word offsets)")
+    g = _group("scan_proj", curve, C, group)
+    if not on_card:
         return scan_proj_plain(curve, x, y, z)
-    _, L, C = x.shape
     out = _empty3(x)
     if L * C:
-        _launch("scan_proj", curve, (x, y, z), out, L, C)
+        _launch("scan_proj", curve, (x, y, z), out, L, C, group=g)
     return out
 
 
@@ -221,14 +272,17 @@ def map_padd(curve: Curve, p, q):
     return out
 
 
-def map_pdouble(curve: Curve, p, times: int = 1):
-    """K4. `times` doublings in a row, fused in one kernel; (rows, C)."""
-    if not _check(curve, p, 2):
-        return map_pdouble_plain(curve, p, times)
+def map_pdouble(curve: Curve, p, times: int = 1, group: int | None = None):
+    """K4. `times` doublings in a row, fused in one kernel; (rows, C).
+    `group`: threads per lane, by default `lane_group`'s."""
+    on_card = _check(curve, p, 2)
     C = p[0].shape[1]
+    g = _group("map_pdouble", curve, C, group)
+    if not on_card:
+        return map_pdouble_plain(curve, p, times)
     out = _empty3(p[0])
     if C:
-        _launch("map_pdouble", curve, p, out, C, times)
+        _launch("map_pdouble", curve, p, out, C, times, group=g)
     return out
 
 
@@ -297,6 +351,70 @@ def issue_rates(device, iters: int = 1 << 13) -> dict:
                 _build.check(rc, "imad_probe")
             rates[name] = per_sm * threads * iters * per_round / int(cycles.max())
     return rates
+
+
+# dependent multiply levels of one doubling on a lane group (csrc/ec.cu
+# `pdouble_group`), for the one-lane critical-path floor chip_smoke.py logs
+PDOUBLE_LEVELS = {"g1": 2, "g2": 3}
+
+
+def mul_latency_cycles(device, call: bool, iters: int = 4096) -> float:
+    """Clock cycles of one Montgomery multiply in a dependent chain on one
+    thread (csrc/imad_probe.cu): inline as G1's kernels run it, or through
+    G2's non-inlined call. Not on the prove path."""
+    sink = torch.empty(1, dtype=torch.int32, device=device)
+    cycles = torch.empty(1, dtype=torch.int64, device=device)
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream().cuda_stream
+        for _ in range(2):  # the first launch warms up
+            rc = _build.lib().kt_mul_latency(int(call), iters, sink.data_ptr(), cycles.data_ptr(), stream)
+            _build.check(rc, "mul_latency")
+    return int(cycles[0]) / iters
+
+
+def device_ms(fn, device, reps: int = 20) -> float:
+    """Mean device milliseconds of fn() over `reps` calls in a row, between
+    two CUDA events, after one warm-up call. csrc/imad_probe.cu's spin kernel
+    holds the stream while the host queues the calls behind it (for three
+    times the host time that many calls took, plus 5 ms, at most 0.5 s), so
+    the device runs them back to back: what is timed is the device's work
+    and each launch's gap on the device, not the host's launch overhead.
+    Raises if the host still had not queued them all within a second, longer
+    spin, as it does when the calls make more launches than the device queues
+    (about a thousand): give such an fn fewer reps."""
+    lib = _build.lib()
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream().cuda_stream
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        spin_s = min(3 * (time.perf_counter() - t0) + 5e-3, 0.5)
+        for _ in range(2):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            _build.check(lib.kt_spin(int(spin_s * 2.0e9), stream), "spin")  # cycles at <= 2 GHz
+            t0 = time.perf_counter()
+            start.record()
+            for _ in range(reps):
+                fn()
+            end.record()
+            queued_s = time.perf_counter() - t0
+            torch.cuda.synchronize()
+            if queued_s < spin_s:
+                return start.elapsed_time(end) / reps
+            spin_s = min(2 * spin_s, 1.0)
+    raise RuntimeError(f"device_ms: the host took {queued_s:.4f} s to queue {reps} calls, past the spin")
+
+
+def empty_launch_ms(device, reps: int = 200) -> float:
+    """Device milliseconds per launch of an empty kernel, launched back to
+    back (`device_ms`)."""
+    lib = _build.lib()
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream().cuda_stream
+    return device_ms(lambda: _build.check(lib.kt_empty(stream), "empty"), device, reps)
 
 
 def field_op_cuda(spec_name: str, op: str, a, b):

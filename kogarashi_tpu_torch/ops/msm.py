@@ -239,8 +239,33 @@ def msm(curve: Curve, x, y, inf, scalars, c: int | None = None):
     digits = signed_digits(scal, c, n_windows)
 
     G = _windows(curve, x, y, digits, (1 << (c - 1)) + 1, L)  # (rows, W, 1)
+    return window_combine(curve, G, c)
+
+
+def window_combine(curve: Curve, G, c: int):
+    """MSB-first acc = 2^c * acc + G_w over the (rows, W, 1) window sums
+    (msm_pallas.py:383-388): W - 1 rounds of K4 (c doublings) and K3, each
+    at one lane."""
     acc = tuple(g[:, -1].contiguous() for g in G)
-    for w in range(n_windows - 2, -1, -1):
+    for w in range(G[0].shape[1] - 2, -1, -1):
         acc = ec.map_pdouble(curve, acc, times=c)
         acc = ec.map_padd(curve, acc, tuple(g[:, w].contiguous() for g in G))
     return acc
+
+
+def scan_proj_launches(n: int, c: int) -> list:
+    """The scan_proj (K2) launches one `msm` over n points with window c
+    makes, worked out from `scan_depth` as `inclusive_prefix` and
+    `reduce_points` recurse: [((L, C), launches)], largest L * C first.
+    Three recursions of (W, m) rows: the prefix of K1's chunk totals
+    (m = n / L), and the prefix and the reduction of the bucket suffix sums
+    (m = 2^(c-1) + 1 buckets)."""
+    W = -(-256 // c)
+    L0 = scan_depth(W * n)
+    counts: dict = {}
+    for m in (-(-n // L0), (1 << (c - 1)) + 1, (1 << (c - 1)) + 1):
+        while m > 128:
+            L = scan_depth(W * m)
+            m = -(-m // L)
+            counts[(L, W * m)] = counts.get((L, W * m), 0) + 1
+    return sorted(counts.items(), key=lambda kv: -kv[0][0] * kv[0][1])

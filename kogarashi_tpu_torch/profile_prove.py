@@ -38,7 +38,8 @@ from .ops import _build
 from .ops.msm import msm
 
 LOG2_CONSTRAINTS = 20
-EC_KERNELS = ("scan_mixed_kernel", "scan_proj_kernel", "padd_kernel", "pdouble_kernel")
+EC_KERNELS = ("scan_mixed_kernel", "scan_proj_kernel", "scan_proj_group_kernel", "padd_kernel",
+              "pdouble_kernel", "pdouble_group_kernel")
 
 
 def trace_summary(prof, window: str) -> dict:

@@ -101,3 +101,52 @@ def test_msm_on_card_matches_oracle(dev):
     for p_, k in zip(pts, ks):
         want = want + k * p_
     assert decode_points(G1, out)[0] == want
+
+
+def _lanes(curve, dev, n, seed):
+    """n random projective points on the card (non-trivial Z)."""
+    sc = np.random.default_rng(seed).integers(0, 1 << 16, size=(16, n), dtype=np.uint32)
+    sc[15] &= 0x3FFF
+    sc[0] |= 1
+    return tuple(t.contiguous() for t in fixed_base_mul(curve, torch.from_numpy(sc.astype(np.int32)).to(dev)))
+
+
+def _group_launches(kernel, curve, g):
+    return ec.GROUP_LAUNCHES.get(f"{kernel}_{curve.name}", {}).get(g, 0)
+
+
+@pytest.mark.parametrize("C", [1, 3, 33, 129, 1040, 1 << 16])
+@pytest.mark.parametrize("curve", [G1, G2], ids=["g1", "g2"])
+def test_lane_groups_match_plain(dev, curve, C):
+    """K4 (t = 16) and K2 (L = 2) at every built lane group, exactly against
+    their plain versions, at C lanes: ragged C, C = 1 and a wide C. K4's
+    lane 1 is O; K2's chunks 0-3 add P + P, P + (-P), P + O and O + Q."""
+    from kogarashi_tpu_torch.ops.msm import pneg
+
+    p = _lanes(curve, dev, C, C)
+    ident = ec.identity_words(curve, (1,), dev)
+    if C > 1:
+        for k in range(3):
+            p[k][:, 1] = ident[k][:, 0]
+    want = ec.map_pdouble_plain(curve, p, times=16)
+    for g in ec.groups("map_pdouble", curve):
+        n = _group_launches("map_pdouble", curve, g)
+        got = ec.map_pdouble(curve, p, times=16, group=g)
+        assert all(torch.equal(a, b) for a, b in zip(got, want)), g
+        assert _group_launches("map_pdouble", curve, g) == n + 1
+
+    a, b = _lanes(curve, dev, C, C + 7), _lanes(curve, dev, C, C + 8)
+    s = tuple(torch.stack([u, v], dim=1).contiguous() for u, v in zip(a, b))  # (rows, L = 2, C)
+    if C >= 4:
+        neg = pneg(curve, tuple(t[:, 0, 1:2] for t in s))
+        for k in range(3):
+            s[k][:, 1, 0] = s[k][:, 0, 0]  # P + P
+            s[k][:, 1, 1] = neg[k][:, 0]  # P + (-P)
+            s[k][:, 1, 2] = ident[k][:, 0]  # P + O
+            s[k][:, 0, 3] = ident[k][:, 0]  # O + Q
+    want = ec.scan_proj_plain(curve, *s)
+    for g in ec.groups("scan_proj", curve):
+        n = _group_launches("scan_proj", curve, g)
+        got = ec.scan_proj(curve, *s, group=g)
+        assert all(torch.equal(a, b) for a, b in zip(got, want)), g
+        assert _group_launches("scan_proj", curve, g) == n + 1

@@ -194,3 +194,56 @@ def test_bound_ms(kernel, curve, shape, times, muls, n_in):
     ms, by = ec.bound_ms(kernel, curve, shape, clock, times)
     assert ms == pytest.approx(max(t_ops, t_bytes), rel=1e-12)
     assert by == ("operations" if t_ops >= t_bytes else "bytes")
+
+
+@pytest.mark.parametrize("name", ["g1", "g2"])
+def test_map_pdouble_one_lane_t16(name):
+    """K4's plain version at the window combine's shape, one lane and
+    t = 16, against pyref: 2^16 * P."""
+    curve = CURVES[name][0]
+    p = _pts(curve, 7, 1)
+    got = ec.map_pdouble(curve, encode_projective(curve, p, "cpu"), times=16)
+    assert decode_points(curve, got) == [(1 << 16) * p[0]]
+
+
+@pytest.mark.parametrize("name", ["g1", "g2"])
+def test_scan_proj_ragged(name):
+    """K2's plain version at L = 2 and a C that no lane group divides,
+    against pyref prefix sums; chunks hold P + P, P + (-P), P + O, O + Q."""
+    curve = CURVES[name][0]
+    nc = 5
+    pts = _pts(curve, 8, 2 * nc)
+    ident = curve.pyref_spec.identity_affine()
+    pts[1], pts[3], pts[5], pts[6] = pts[0], -pts[2], ident, ident
+    S = ec.scan_proj(curve, *(t.reshape(curve.rows, nc, 2).transpose(1, 2).contiguous()
+                              for t in encode_projective(curve, pts, "cpu")))
+    flat = tuple(s.transpose(1, 2).reshape(curve.rows, -1) for s in S)
+    want = [a for c in range(nc) for a in (ident + pts[2 * c], pts[2 * c] + pts[2 * c + 1])]
+    assert decode_points(curve, flat) == want
+
+
+def test_lane_group_argument():
+    x = torch.zeros((8, 2, 4), dtype=torch.int32)
+    with pytest.raises(ValueError):
+        ec.scan_proj(G1, x, x, x, group=3)  # not a built group size
+    with pytest.raises(ValueError):
+        ec.map_pdouble(G1, (x[:, 0], x[:, 0], x[:, 0]), group=32)
+
+
+# lane_group's choice at each shape of the main path: K2 at the 13 chunk
+# counts of a 2^20-point MSM with c = 16 (test_torch_msm.py holds the list),
+# K4 at the window combine's one lane and at 2^16 lanes
+_K2_C = (65552, 65536, 32784, 32768, 16400, 16384, 8208, 8192, 4112, 4096, 2064, 2048, 1040)
+_LANE_GROUP_CASES = (
+    [("scan_proj", "g1", C, g) for C, g in zip(_K2_C, (1, 1, 1, 1, 2, 2, 2, 2, 4, 4, 8, 8, 8))]
+    + [("scan_proj", "g2", C, g) for C, g in zip(_K2_C, (1, 1, 1, 1, 1, 1, 8, 8, 8, 8, 8, 8, 16))]
+    + [("map_pdouble", "g1", 1, 4), ("map_pdouble", "g1", 1 << 16, 1),
+       ("map_pdouble", "g2", 1, 16), ("map_pdouble", "g2", 1 << 16, 1)])
+
+
+@pytest.mark.parametrize("kernel,name,C,g", _LANE_GROUP_CASES)
+def test_lane_group(kernel, name, C, g):
+    curve = CURVES[name][0]
+    got = ec.lane_group(kernel, curve, C)
+    assert got == g
+    assert 32 % got == 0 and got in ec.groups(kernel, curve)

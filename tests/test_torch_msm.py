@@ -51,7 +51,9 @@ def _oracle(pts, ks, curve):
     "name,n,c", [("g1", 512, 8), ("g1", 512, 12), ("g1", 100, None), ("g2", 64, 8)],
     ids=["g1-512-c8", "g1-512-c12", "g1-100-default", "g2-64-c8"],
 )
-def test_msm_vs_oracle(name, n, c):
+def test_msm_vs_oracle(name, n, c, monkeypatch):
+    """Also: the scan_proj (K2) launches the MSM makes are the ones
+    `scan_proj_launches` works out."""
     curve = CURVES[name]
     rng = random.Random(n)
     g = curve.pyref_spec.generator
@@ -60,8 +62,17 @@ def test_msm_vs_oracle(name, n, c):
     pts[5] = pts[17] = curve.pyref_spec.identity_affine()
     ks = _scalars(n - 4, n) + [0, 0, 1, C.R - 1]
     x, y, inf = prepare_points(curve, pts, "cpu")
+    seen = {}
+    real = M.ec.scan_proj
+
+    def spy(curve_, *xyz):
+        seen[tuple(xyz[0].shape[1:])] = seen.get(tuple(xyz[0].shape[1:]), 0) + 1
+        return real(curve_, *xyz)
+
+    monkeypatch.setattr(M.ec, "scan_proj", spy)
     out = M.msm(curve, x, y, inf, torch.from_numpy(ints_to_limbs16(ks)), c=c)
     assert decode_points(curve, out)[0] == _oracle(pts, ks, curve)
+    assert sorted(seen.items()) == sorted(M.scan_proj_launches(n, c or M.default_window(n)))
 
 
 def test_msm_all_zero_scalars():
@@ -98,3 +109,11 @@ def test_scan_depth():
     assert M.scan_depth(1 << 20) == 16
     assert M.scan_depth(16 << 20) == 128
     assert M.default_window(512) == 8 and M.default_window(1 << 12) == 12
+
+
+def test_scan_proj_launches_2pow20():
+    """K2's 20 launches at 13 shapes in one 2^20-point MSM with c = 16."""
+    assert M.scan_proj_launches(1 << 20, 16) == [
+        ((8, 65552), 2), ((2, 65536), 1), ((2, 32784), 2), ((2, 32768), 1), ((2, 16400), 2),
+        ((2, 16384), 1), ((2, 8208), 2), ((2, 8192), 1), ((2, 4112), 2), ((2, 4096), 1),
+        ((2, 2064), 2), ((2, 2048), 1), ((2, 1040), 2)]
