@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Build the port's CUDA kernels and drive the Groth16 prove path on one GPU.
+"""Build the port's CUDA kernels and drive the Groth16 and Nova paths on one GPU.
 
     python3 chip_smoke.py
 
@@ -18,13 +18,16 @@ with the card's name and power limit beside it:
            scan_proj (K2) launches each MSM made, held against
            ops/msm.py `scan_proj_launches`; the device time of each MSM's
            window combine (15 x map_pdouble t = 16 + map_padd at one lane)
-  ec       K1-K4 (scan_mixed, scan_proj, map_padd, map_pdouble) for G1 and
-           G2 against their plain versions at the main path's shapes
-           (K2 at all 13 shapes of the 2^20 MSM and at the scan's; K4 at 1, 4
-           and 2^16 lanes), exactly, timed on the device (ops/ec.py
-           `device_ms`: launches queued behind a spin kernel, so the host's
-           launch overhead is not timed) beside their bound (ops/ec.py
-           `bound_ms`, at the SM clock nvidia-smi reads under load); K2 and K4
+  ec       K1-K4 (scan_mixed, scan_proj, map_padd, map_pdouble) for G1,
+           G2 and Grumpkin against their plain versions at the main paths'
+           shapes (G1 and G2: K2 at all 13 shapes of the 2^20 MSM and at the
+           scan's, K4 at 1, 4 and 2^16 lanes; Grumpkin: K1 and K2 at the
+           shapes of one Nova secondary commit's MSM, 78982 points, K3 at
+           78982 lanes, K4 at 1 and 4 lanes), exactly, timed on the device
+           (ops/ec.py `device_ms`: launches queued behind a spin kernel, so
+           the host's launch overhead is not timed) beside their bound
+           (ops/ec.py `bound_ms`, at the SM clock nvidia-smi reads under
+           load); K2 and K4
            with the lane group g `ops/ec.py::lane_group` picks, K2 with its
            launches per MSM and its time summed over one MSM, K4 at one lane
            with its critical-path floor (levels x t x one dependent multiply's
@@ -33,13 +36,22 @@ with the card's name and power limit beside it:
            rate the bound assumes
   groth16  SquareChainCircuit(2^20): setup -> prove -> verify on the card,
            a tampered public input rejected; the kernel launch counters of
-           this run must all be > 0, and K2's and K4's by lane group
-           (`ec.GROUP_LAUNCHES`) for every group of K2 and K4's one-lane one
+           this run must all be > 0 for G1 and G2, and K2's and K4's by lane
+           group (`ec.GROUP_LAUNCHES`) for every group of K2 and K4's
+           one-lane one
+  nova     Nova IVC at the fixture's full size (`phase_nova`): the 3-step
+           chain under the reference seed verifies, rejects a tampered z_i,
+           and its proof's sha256 is the JAX package's; every Grumpkin and G1
+           kernel, and every Grumpkin lane group, launched in it; then a
+           timed chain (random.Random(99)): setup, each step, steps/s,
+           verify, and a folding step's split into synthesis, cross term,
+           G1 and Grumpkin commits, transcripts and folds
 The last lines are the kernels' JSON record (name, route, source, replaces,
-launches, max_abs_err, ms, plain_ms, bound_ms, bound_by, bound_share,
-library_ms, shape, times, g for K2 and K4, their other shapes, for K2 and K4
-launches_by_g, for K2 msm_sum_ms and msm_sum_bound_ms, for K4 at one lane
-floor_ms), the card, and
+launches (on the kernel's path: Groth16's for G1 and G2, Nova's for
+Grumpkin), path, launches_by_path, max_abs_err, ms, plain_ms, bound_ms,
+bound_by, bound_share, library_ms, shape, times, g for K2 and K4, their
+other shapes, for K2 and K4 launches_by_g, for K2 msm_sum_ms and
+msm_sum_bound_ms, for K4 at one lane floor_ms), the card, and
 {"ok": true, "device": {...}}. Without a CUDA device it exits non-zero.
 """
 
@@ -57,6 +69,16 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 LOG2_MSM = 20  # the MSM phase's G1 size, and the shapes the ec phase checks
 LOG2_CONSTRAINTS = 20  # SquareChainCircuit size of the groth16 phase
+# points of one Nova secondary commit: the Grumpkin key's active length,
+# max(m, m_l_1) of the augmented secondary circuit (nova/ivc.py)
+NOVA_COMMIT = 78982
+# sha256 of the JAX package's serialized 3-step RecursiveProof under the
+# reference seed. tests/test_fixed_seed_ivc.py:26 pins another value, which
+# the JAX package no longer gives: its test fails there, its proof verifies,
+# and this is the digest that test reports.
+NOVA_PROOF_DIGEST = "488173b8bec07319e19a6949aaf43069f72932c78de84983e2c250d8af183f56"
+NOVA_STEPS = 10  # the timed chain's steps (benches/ivc_chain.py's seed, 99)
+NOVA_PHASE_S = 90  # ... cut to 5 steps if 10 would take the chain longer
 EC_SOURCE = "kogarashi_tpu_torch/csrc/ec.cu"
 REPLACES = {
     "scan_mixed": "kogarashi_tpu/ops/ec_pallas.py:336",
@@ -203,34 +225,45 @@ def random_points(curve, m: int, seed: int, dev):
 
 def phase_ec(dev, card: str, log_n: int, windows: int, k2_launches) -> dict:
     """K1-K4 against their plain versions, exactly, and timed, at the shapes
-    of the main path: the scans at the 2^log_n MSM's (all windows side by
-    side: L = scan depth, C = windows * n / L, each window a permutation of
-    the same points); K2 at every shape the MSM gave it (`k2_launches`,
-    [(shape, launches per MSM)]), and its time and bound summed over one
-    MSM's launches; the maps at 2^log_n lanes (setup's fixed-base adds);
-    map_pdouble with t = 16 at the window combine's one lane, at 4 lanes and
-    at 2^16 lanes, and at one lane its critical-path floor. K2 and K4 run at
-    the lane group `ec.lane_group` picks (logged as g). Each entry's bound is
-    ops.ec.bound_ms at the SM clock nvidia-smi reads under load."""
+    of the main paths: for G1 and G2 the 2^log_n MSM's, for Grumpkin those
+    of one Nova secondary commit (an MSM over NOVA_COMMIT points). The scans
+    at the MSM's (all windows side by side: L = scan depth, C = windows * n
+    / L over n padded to a multiple of L, each window a permutation of the
+    same points); K2 at every shape the MSM gives it (G1 and G2:
+    `k2_launches`, [(shape, launches per MSM)], as the 2^log_n G1 MSM gave
+    them; Grumpkin: `msm.scan_proj_launches`), and its time and bound summed
+    over one MSM's launches; the maps at n lanes (the fixed-base adds of
+    Groth16's setup and of Nova's key sampling); map_pdouble with t = 16 at
+    the window combine's one lane, at 4 lanes (one the identity) and, for G1
+    and G2, at 2^16 lanes, and at one lane its critical-path floor. K2 and K4
+    run at the lane group `ec.lane_group` picks (logged as g). Each entry's
+    bound is ops.ec.bound_ms at the SM clock nvidia-smi reads under load."""
     import torch
 
-    from kogarashi_tpu_torch.curves import G1, G2
+    from kogarashi_tpu_torch.curves import G1, G2, GRUMPKIN
     from kogarashi_tpu_torch.ops import ec
-    from kogarashi_tpu_torch.ops.msm import pneg, scan_depth
+    from kogarashi_tpu_torch.ops.msm import pneg, scan_depth, scan_proj_launches
 
-    n = 1 << log_n
-    L = scan_depth(windows * n)
-    C = windows * n // L
     gen = torch.Generator(device="cpu").manual_seed(5)
     record, clock = {}, None
     mul_cycles = {"g1": ec.mul_latency_cycles(dev, call=False), "g2": ec.mul_latency_cycles(dev, call=True)}
+    mul_cycles["grumpkin"] = mul_cycles["g1"]  # the same inlined 8-word multiply
     launch_ms = ec.empty_launch_ms(dev)
     log("ec", f"one dependent multiply on one thread (csrc/imad_probe.cu): {mul_cycles['g1']:.1f} cycles "
               f"inline (G1), {mul_cycles['g2']:.1f} as G2's call; an empty launch {launch_ms:.5f} ms ({card})")
-    for curve, seed in ((G1, 1), (G2, 2)):
+    nova_k2 = [((GRUMPKIN.rows, *lc), k) for lc, k in scan_proj_launches(NOVA_COMMIT, windows)]
+    configs = ((G1, 1, 1 << log_n, k2_launches, (1, 4, 1 << 16)),
+               (G2, 2, 1 << log_n, k2_launches, (1, 4, 1 << 16)),
+               (GRUMPKIN, 3, NOVA_COMMIT, nova_k2, (1, 4)))
+    for curve, seed, n, k2_shapes, k4_lanes in configs:
         rows = curve.rows
-        proj, (ax, ay, _) = random_points(curve, n, seed, dev)
-        perms = torch.stack([torch.randperm(n, generator=gen) for _ in range(windows)]).to(dev)
+        L = scan_depth(windows * n)
+        n_pad = n + (-n % L)
+        C = windows * n_pad // L
+        log("ec", f"{curve.name}: MSM over {n} points, K1 at {(rows, L, C)}, K2 at (L, C) x launches "
+                  f"{[(tuple(s[1:]), k) for s, k in k2_shapes]} (msm.scan_proj_launches({n}, {windows}))")
+        proj, (ax, ay, _) = random_points(curve, n_pad, seed, dev)
+        perms = torch.stack([torch.randperm(n_pad, generator=gen) for _ in range(windows)]).to(dev)
 
         def scan_layout(t):
             return t[:, perms].reshape(rows, L, C).contiguous()
@@ -241,8 +274,8 @@ def phase_ec(dev, card: str, log_n: int, windows: int, k2_launches) -> dict:
 
         scan_aff = tuple(scan_layout(t) for t in (ax, ay))
         scan_prj = tuple(scan_layout(t) for t in proj)
-        p = tuple(t.contiguous() for t in proj)
-        q = tuple(t.roll(1, dims=1).contiguous() for t in proj)
+        p = tuple(t[:, :n].contiguous() for t in proj)
+        q = tuple(t[:, :n].roll(1, dims=1).contiguous() for t in proj)
         ident = ec.identity_words(curve, (1,), dev)
         negp = pneg(curve, tuple(t[:, 1:2] for t in p))
         for k in range(3):  # lanes 0-3: P+P, P+(-P), O+Q, P+O
@@ -250,8 +283,8 @@ def phase_ec(dev, card: str, log_n: int, windows: int, k2_launches) -> dict:
             q[k][:, 1] = negp[k][:, 0]
             p[k][:, 2] = ident[k][:, 0]
             q[k][:, 3] = ident[k][:, 0]
-        pd = {m: tuple(t[:, :m].contiguous() for t in p) for m in (1, 4, 1 << 16)}
-        k2 = [((rows, *s[1:]), k) for s, k in k2_launches]
+        pd = {m: tuple(t[:, :m].contiguous() for t in p) for m in k4_lanes}
+        k2 = [((rows, *s[1:]), k) for s, k in k2_shapes]
         # kernel -> [(shape, times, kernel call, plain call, launches per MSM)]; the first is the entry's
         cases = {
             "scan_mixed": [((rows, L, C), 1, lambda: ec.scan_mixed(curve, *scan_aff),
@@ -264,7 +297,7 @@ def phase_ec(dev, card: str, log_n: int, windows: int, k2_launches) -> dict:
                           lambda: ec.map_padd_plain(curve, p, q), None)],
             "map_pdouble": [((rows, m), 16, lambda a=pd[m]: ec.map_pdouble(curve, a, times=16),
                              lambda a=pd[m]: ec.map_pdouble_plain(curve, a, times=16), None)
-                            for m in (1, 4, 1 << 16)],
+                            for m in k4_lanes],
         }
         for kname, runs in cases.items():
             measured = []
@@ -305,7 +338,7 @@ def phase_ec(dev, card: str, log_n: int, windows: int, k2_launches) -> dict:
                 per = [m for m in measured if "launches_per_msm" in m]
                 rec["msm_sum_ms"] = sum(m["ms"] * m["launches_per_msm"] for m in per)
                 rec["msm_sum_bound_ms"] = sum(m["bound_ms"] * m["launches_per_msm"] for m in per)
-                log("ec", f"scan_proj_{curve.name} over one 2^{log_n} MSM's {sum(m['launches_per_msm'] for m in per)} "
+                log("ec", f"scan_proj_{curve.name} over one {n}-point MSM's {sum(m['launches_per_msm'] for m in per)} "
                           f"launches at {len(per)} shapes: {rec['msm_sum_ms']:.4f} ms, bound "
                           f"{rec['msm_sum_bound_ms']:.4f} ms, share {rec['msm_sum_bound_ms'] / rec['msm_sum_ms']:.3f} ({card})")
             record[f"{kname}_{curve.name}"] = rec
@@ -406,14 +439,158 @@ def phase_groth16(dev, card: str, log2_m: int) -> tuple:
     # one-lane group (the window combine's)
     want = [(f"scan_proj_{c.name}", g) for c in (G1, G2) for g in ec.groups("scan_proj", c)]
     want += [(f"map_pdouble_{c.name}", ec.lane_group("map_pdouble", c, 1)) for c in (G1, G2)]
-    missing = [k for k, v in launches.items() if v <= 0]
+    missing = [f"{k}_{c.name}" for k in ec.KERNELS for c in (G1, G2) if launches[f"{k}_{c.name}"] <= 0]
     missing += [f"{k} g={g}" for k, g in want if by_group.get(k, {}).get(g, 0) <= 0]
     if missing:
-        raise AssertionError(f"kernels not launched on the main path: {missing}")
+        raise AssertionError(f"kernels not launched on the Groth16 path: {missing}")
     log("groth16", f"SquareChainCircuit(2^{log2_m}): setup {t_setup:.3f} s, prove {t_prove:.3f} s, "
                    f"verify {t_verify:.3f} s; verify True, tampered input rejected ({card})")
     log("groth16", f"launches: {json.dumps(launches)}")
     log("groth16", f"K2 and K4 launches by lane group g: {json.dumps(by_group)}")
+    return launches, by_group
+
+
+class StepSplit:
+    """Wall seconds of the parts of Nova's prove_step, summed while active:
+    synthesis (`AugmentedFCircuit.generate`), cross term
+    (`R1csShape.cross_term`) and commits by curve
+    (`PedersenCommitment.commit`), each ended by a device synchronisation.
+    What a step spends elsewhere is transcripts and folds."""
+
+    def __init__(self):
+        from kogarashi_tpu_torch.nova.augmented import AugmentedFCircuit
+        from kogarashi_tpu_torch.nova.pedersen import PedersenCommitment
+        from kogarashi_tpu_torch.nova.relaxed_r1cs import R1csShape
+
+        self.parts = {}
+        self.targets = ((AugmentedFCircuit, "generate", lambda self_: "synthesis"),
+                        (R1csShape, "cross_term", lambda self_: "cross term"),
+                        (PedersenCommitment, "commit", lambda self_: f"commit {self_.curve.name}"))
+
+    def __enter__(self):
+        import torch
+
+        self.saved = []
+        for owner, name, part in self.targets:
+            real = getattr(owner, name)
+
+            def spy(self_, *args, real=real, part=part):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = real(self_, *args)
+                torch.cuda.synchronize()
+                key = part(self_)
+                self.parts[key] = self.parts.get(key, 0.0) + time.perf_counter() - t0
+                return out
+
+            self.saved.append((owner, name, real))
+            setattr(owner, name, spy)
+        return self
+
+    def __exit__(self, *exc):
+        for owner, name, real in self.saved:
+            setattr(owner, name, real)
+
+
+def phase_nova(dev, card: str) -> tuple:
+    """Nova IVC on the BN254 <-> Grumpkin cycle, at the size of the
+    reference's fixture (ExampleFunction; the augmented circuits fix it).
+    1. The reference stream: PublicParams.setup from XorShiftRng under the
+       reference seed, Ivc, 3 x prove_step; the proof verifies, a tampered
+       z_i is rejected, z_i follows z -> z^3 + z + 5 from 0, and the sha256
+       of its encoding is the JAX package's (NOVA_PROOF_DIGEST). The kernel
+       launch counters are read over this run: every Grumpkin kernel and
+       lane group, and every G1 kernel, must have launched.
+    2. A timed chain as benches/ivc_chain.py runs it (random.Random(99)):
+       setup, NOVA_STEPS steps (5 if 10 would take the chain past
+       NOVA_PHASE_S), verify; each step's seconds and the steps' split."""
+    import hashlib
+
+    import torch
+
+    from kogarashi_tpu_torch import constants as C
+    from kogarashi_tpu_torch.curves import GRUMPKIN
+    from kogarashi_tpu_torch.nova import ExampleFunction, Ivc, PublicParams
+    from kogarashi_tpu_torch.ops import ec
+    from kogarashi_tpu_torch.utils.serde import encode_recursive_proof
+    from kogarashi_tpu_torch.utils.xorshift import REFERENCE_TEST_SEED, XorShiftRng
+
+    def chain_state(i):
+        z = 0
+        for _ in range(i):
+            z = (z**3 + z + 5) % C.R
+        return [z]
+
+    ec.reset_launches()  # counts from here on are the Nova path's
+    t0 = time.perf_counter()
+    pp = PublicParams.setup(ExampleFunction, ExampleFunction, XorShiftRng.from_seed(REFERENCE_TEST_SEED),
+                            device=dev)
+    torch.cuda.synchronize()
+    t_setup = time.perf_counter() - t0
+    if pp.ck_secondary.n_active != NOVA_COMMIT:
+        raise AssertionError(f"secondary key holds {pp.ck_secondary.n_active} points, not {NOVA_COMMIT}")
+    t0 = time.perf_counter()
+    ivc = Ivc(pp, z0_primary=[0], z0_secondary=[0])
+    for _ in range(3):
+        proof = ivc.prove_step()
+    t_steps = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ok = proof.verify(pp)
+    t_verify = time.perf_counter() - t0
+    launches = dict(ec.LAUNCHES)
+    by_group = {k: dict(sorted(v.items())) for k, v in ec.GROUP_LAUNCHES.items()}
+    digest = hashlib.sha256(encode_recursive_proof(proof)).hexdigest()
+    if not ok:
+        raise AssertionError("Nova: the 3-step reference proof does not verify")
+    if proof.zi_primary != chain_state(proof.i):
+        raise AssertionError(f"Nova: z_i {proof.zi_primary} after {proof.i} steps")
+    if digest != NOVA_PROOF_DIGEST:
+        raise AssertionError(f"Nova: proof digest {digest}, the JAX package's is {NOVA_PROOF_DIGEST}")
+    proof.zi_primary = [(proof.zi_primary[0] + 1) % C.R]
+    if proof.verify(pp):
+        raise AssertionError("Nova: a proof with a tampered z_i verified")
+    want = [f"{k}_{c}" for k in ec.KERNELS for c in ("g1", "grumpkin")]
+    missing = [k for k in want if launches[k] <= 0]
+    want_g = [("scan_proj_grumpkin", g) for g in ec.groups("scan_proj", GRUMPKIN)]
+    want_g.append(("map_pdouble_grumpkin", ec.lane_group("map_pdouble", GRUMPKIN, 1)))
+    missing += [f"{k} g={g}" for k, g in want_g if by_group.get(k, {}).get(g, 0) <= 0]
+    if missing:
+        raise AssertionError(f"kernels not launched on the Nova path: {missing}")
+    log("nova", f"reference stream: setup {t_setup:.3f} s, Ivc + 3 x prove_step {t_steps:.3f} s, verify "
+                f"{t_verify:.3f} s; verify True, z_i = {proof.i}-fold z^3 + z + 5 from 0, tampered z_i "
+                f"rejected, proof sha256 {digest} = the JAX package's ({card})")
+    log("nova", f"launches: {json.dumps({k: v for k, v in launches.items() if v})}")
+    log("nova", f"K2 and K4 launches by lane group g: {json.dumps(by_group)}")
+
+    t0 = time.perf_counter()
+    pp = PublicParams.setup(ExampleFunction, ExampleFunction, random.Random(99), device=dev)
+    torch.cuda.synchronize()
+    t_setup = time.perf_counter() - t0
+    ivc = Ivc(pp, z0_primary=[0], z0_secondary=[0])
+    steps, n_steps = [], NOVA_STEPS
+    with StepSplit() as split:
+        while len(steps) < n_steps:
+            t0 = time.perf_counter()
+            proof = ivc.prove_step()
+            torch.cuda.synchronize()
+            steps.append(time.perf_counter() - t0)
+            if len(steps) == 5 and t_setup + sum(steps) * n_steps / 5 > NOVA_PHASE_S:
+                n_steps = 5
+    t0 = time.perf_counter()
+    ok = proof.verify(pp)
+    t_verify = time.perf_counter() - t0
+    if not ok or proof.zi_primary != chain_state(proof.i):
+        raise AssertionError(f"Nova: the {n_steps}-step chain's proof does not verify")
+    folds = len(steps) - 1  # the first step is the base case
+    other = sum(steps) - sum(split.parts.values())
+    per = {k: v / folds for k, v in sorted(split.parts.items())}
+    per["transcripts and folds"] = other / folds
+    log("nova", f"timed chain (random.Random(99)): setup {t_setup:.3f} s; steps "
+                f"{[round(t, 4) for t in steps]} s; {len(steps) / sum(steps):.4f} steps/s over "
+                f"{len(steps)} steps, {folds / sum(steps[1:]):.4f} over the {folds} folding steps; verify "
+                f"{t_verify:.3f} s ({card})")
+    log("nova", "a folding step's split, s: " + ", ".join(f"{k} {v:.4f}" for k, v in per.items())
+        + f" (of {sum(steps[1:]) / folds:.4f}; {card})")
     return launches, by_group
 
 
@@ -450,12 +627,16 @@ def main() -> int:
     _, _, k2_launches = msm_check(G1, LOG2_MSM, 16, 0xBE7C4, 1, dev, card)
     msm_check(G2, 16, None, 0xBE7C5, 2, dev, card)
     record = phase_ec(dev, card, LOG2_MSM, windows=16, k2_launches=k2_launches)
-    launches, by_group = phase_groth16(dev, card, LOG2_CONSTRAINTS)
+    paths = {"groth16": phase_groth16(dev, card, LOG2_CONSTRAINTS), "nova": phase_nova(dev, card)}
 
     kernels = []
     for key, rec in record.items():
+        # G1's and G2's kernels belong to the Groth16 path, Grumpkin's to Nova's
+        path = "nova" if key.endswith("_grumpkin") else "groth16"
+        launches, by_group = paths[path]
         entry = dict(name=key, route="cuda", source=EC_SOURCE, replaces=REPLACES[key.rsplit("_", 1)[0]],
-                     launches=launches[key], **rec)
+                     launches=launches[key], path=path,
+                     launches_by_path={k: v[0][key] for k, v in paths.items()}, **rec)
         if key in by_group:
             entry["launches_by_g"] = by_group[key]
         kernels.append(entry)

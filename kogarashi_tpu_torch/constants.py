@@ -10,6 +10,9 @@ Parity (reference = KogarashiNetwork/Kogarashi, Rust):
   - BN_X: bn254/src/params.rs:4
   - G1 generator (1, 2), b = 3: bn254/src/params.rs:8-12
   - G2 generator and twist b: bn254/src/params.rs:15-57
+  - Grumpkin b = -17 and generator (1, y): grumpkin/src/params.rs:5-10
+  - MiMC rounds and transcript widths: nova/src/hash.rs:7-13
+  - BigNat limbs: nova/src/gadget/big_nat.rs:8-9
 """
 
 # Base field of BN254 G1
@@ -45,6 +48,16 @@ assert FR_ROOT_OF_UNITY == 0x03DDB9F5166D18B798865EA93DD31F743215CF6DD39329C8D34
 G1_B = 3
 G1_GEN = (1, 2)
 
+# Grumpkin: y^2 = x^3 - 17 over Fr (its scalar field is Fq), the 2-cycle
+# partner of G1. The reference's generator (1, y) takes the root whose
+# Montgomery limbs (R = 2^256) grumpkin/src/params.rs:6-10 lists.
+GRUMPKIN_B = (-17) % R
+GRUMPKIN_GEN = (
+    1,
+    0x14B34CF69DC25D68AA7B8CF435DFAFBB23D3446F21C77DC311B2DFF1448C41D8 * pow(1 << 256, -1, R) % R,
+)
+assert (GRUMPKIN_GEN[1] ** 2 - GRUMPKIN_GEN[0] ** 3 - GRUMPKIN_B) % R == 0
+
 # G2: y^2 = x^3 + 3/(9 + u) over Fq2 = Fq[u]/(u^2 + 1) (D-type twist);
 # coordinates are (c0, c1) pairs meaning c0 + c1 u
 G2_GEN_X = (
@@ -71,3 +84,12 @@ G2_B = _fq2_mul((3, 0), _fq2_inv(FQ2_XI))
 _lhs = _fq2_mul(G2_GEN_Y, G2_GEN_Y)
 _rhs = _fq2_mul(_fq2_mul(G2_GEN_X, G2_GEN_X), G2_GEN_X)
 assert _lhs == ((_rhs[0] + G2_B[0]) % Q, (_rhs[1] + G2_B[1]) % Q)
+
+# MiMC (nova/src/hash.rs:7-13)
+MIMC_ROUNDS = 46
+CHALLENGE_BITS = 128
+HASH_BITS = 252
+
+# Nova BigNat gadget limb layout (nova/src/gadget/big_nat.rs:8-9)
+BN_LIMB_WIDTH = 64
+BN_N_LIMBS = 4

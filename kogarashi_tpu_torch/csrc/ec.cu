@@ -1,4 +1,5 @@
-// Batched short-Weierstrass point kernels (BN254 G1 over Fq, G2 over Fq2).
+// Batched short-Weierstrass point kernels (BN254 G1 over Fq, G2 over Fq2,
+// Grumpkin over Fr).
 //
 // Replaces the four Pallas TPU kernels of kogarashi_tpu/ops/ec_pallas.py:
 //   K1 scan_mixed  <- `_scan_call(mixed=True)`  (:336, body `_scan_kernel` :297)
@@ -13,9 +14,10 @@
 //
 // Layout: coordinates are int32 word planes, limb-major. Scans take
 // (W, L, C) arrays (word k, scan position j, chunk c at k*L*C + j*C + c);
-// maps take (W, C). W = 8 for G1, 16 for G2. Thread c touches word k of
-// lane c at k*plane + c, so each of a warp's loads and stores covers 32
-// neighbouring words (128 bytes): every coordinate access is coalesced.
+// maps take (W, C). W = 8 for G1 and Grumpkin, 16 for G2. Thread c touches
+// word k of lane c at k*plane + c, so each of a warp's loads and stores
+// covers 32 neighbouring words (128 bytes): every coordinate access is
+// coalesced.
 //
 // What bounds them (ops/ec.py `bound_ms` computes it per shape): 32-bit
 // integer multiply-adds. A Montgomery multiply is 264 of them (field.cuh);
@@ -28,7 +30,13 @@
 //
 // b3: G1 has b = 3, so b3 = 3b = 9 and 9x = 8x + x is three modular
 // doublings and one add (`G1::mul_b3`), the same canonical element as the
-// multiply by 9R it replaces. G2's b3 is a general Fq2 constant.
+// multiply by 9R it replaces. Grumpkin has b = -17, so b3 = -51, seven adds
+// and a negation (`Grumpkin::mul_b3`). G2's b3 is a general Fq2 constant.
+//
+// Grumpkin (Nova's secondary commitments, ops/msm.py at 78982 points) runs
+// G1's templates with the base field Fr: the same 8-word multiply (field.cuh
+// states its bound for r), G1's block settings, 32-bit K2 offsets, shuffle
+// exchanges, and K2 / K4 lane groups of the sizes G1 builds.
 //
 // Per kernel: design, and ptxas -v (nvcc 12.9, sm_90a) registers per thread
 // as G1 / G2; no kernel spills, no stack. chip_smoke.py's build phase prints
@@ -150,6 +158,29 @@ struct G2 {
     return r;
   }
   __device__ __forceinline__ static A::E mul_b3(const A::E& x) { return A::mul(x, b3()); }
+};
+
+// Grumpkin, y^2 = x^3 - 17 over Fr: the commitment curve of Nova's secondary
+// circuit. Its kernels are G1's with the base field Fr and its own b3.
+struct Grumpkin {
+  typedef Alg1<Fr> A;
+  static constexpr int W = 8;
+  static constexpr int kMinBlocks = 4;
+  static constexpr int kScanMinBlocks = 1;
+  static constexpr bool kB3ByAdds = true;
+  typedef u32 ScanIndex;
+  static constexpr bool kShuffle = true;
+  static constexpr int kPdoubleGroup = 4;
+  // b3 = 3 * (-17) = -51: 17x = 16x + x, 51x = 2 (17x) + 17x, then negated;
+  // seven modular adds and a negation in place of one multiply
+  __device__ __forceinline__ static A::E mul_b3(const A::E& x) {
+    A::E x16 = A::add(x, x);
+    x16 = A::add(x16, x16);
+    x16 = A::add(x16, x16);
+    x16 = A::add(x16, x16);
+    const A::E x17 = A::add(x16, x);
+    return A::sub(A::zero(), A::add(A::add(x17, x17), x17));
+  }
 };
 
 template <class Cv>
@@ -764,3 +795,4 @@ using namespace kt;
 
 KT_EC_ENTRIES(g1, G1)
 KT_EC_ENTRIES(g2, G2)
+KT_EC_ENTRIES(grumpkin, Grumpkin)

@@ -37,8 +37,10 @@
 // (ops/ec.py), of which ptxas fuses each lo/hi pair into one IMAD.WIDE.
 //
 // Bound argument (every function returns a canonical value in [0, p)):
-//   * p < 2^254 for both BN254 fields, so 2p < 2^255 and any sum of two
-//     canonical values fits in 8 words with no carry out.
+//   * p < 2^254 for both BN254 fields, q (G1's and G2's base field) and r
+//     (Grumpkin's base field): both have the top word 0x30644e72 < 2^30. So
+//     2p < 2^255 and any sum of two canonical values fits in 8 words with no
+//     carry out. Nothing below depends on which of the two p is.
 //   * mont_mul, with a, b < p. Before row i the running value is t < 2p
 //     (t = 0 before row 0). Row i adds a * b_i <= (2^32 - 1) p and
 //     m_i * p <= (2^32 - 1) p, so every partial sum is below 2p + 2^33 p,

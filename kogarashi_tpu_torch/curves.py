@@ -1,5 +1,5 @@
-"""BN254 G1 and G2 for the port: constants, host encode/decode, batched
-projective-to-affine.
+"""BN254 G1 and G2, and Grumpkin, for the port: constants, host
+encode/decode, batched projective-to-affine.
 
 Counterpart of `kogarashi_tpu/curves/__init__.py::_mk_curves` (:88-124),
 `ec_pallas.CurveK` (:170) and `msm_pallas.curve_k` (:473). A batch of points
@@ -17,14 +17,14 @@ import torch
 from . import constants as C
 from .devices import resolve
 from .fields import mont
-from .fields.spec import FQ, FieldSpec
-from .pyref import G1_SPEC, G2_SPEC, Fq, Fq2
+from .fields.spec import FQ, FR, FieldSpec
+from .pyref import G1_SPEC, G2_SPEC, GRUMPKIN_SPEC, Fq, Fq2
 
 
 @dataclass(frozen=True)
 class Curve:
-    name: str  # "g1" | "g2": selects the kernel instantiation
-    ext: int  # 1: coordinates in Fq, 2: in Fq2
+    name: str  # "g1" | "g2" | "grumpkin": selects the kernel instantiation
+    ext: int  # 1: coordinates in the base field, 2: in Fq2
     spec: FieldSpec  # base field
     b3: object  # 3b, standard form: int (ext 1) or (c0, c1)
     pyref_spec: object
@@ -68,7 +68,9 @@ class Curve:
 
 G1 = Curve("g1", 1, FQ, 3 * C.G1_B % C.Q, G1_SPEC)
 G2 = Curve("g2", 2, FQ, (3 * C.G2_B[0] % C.Q, 3 * C.G2_B[1] % C.Q), G2_SPEC)
-CURVES = {"g1": G1, "g2": G2}
+# y^2 = x^3 - 17 over Fr, the commitment curve of Nova's secondary circuit
+GRUMPKIN = Curve("grumpkin", 1, FR, 3 * C.GRUMPKIN_B % C.R, GRUMPKIN_SPEC)
+CURVES = {"g1": G1, "g2": G2, "grumpkin": GRUMPKIN}
 
 
 def prepare_points(curve: Curve, pts, device=None):

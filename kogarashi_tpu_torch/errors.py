@@ -1,6 +1,7 @@
-"""The Groth16 failure modes the port raises (parity: groth16/src/error.rs).
+"""The failure modes the port raises (parity: groth16/src/error.rs,
+nova/src/proof.rs).
 
-The port's own copy of the two classes of `kogarashi_tpu/errors.py` it uses.
+The port's own copy of the classes of `kogarashi_tpu/errors.py` it uses.
 """
 
 from __future__ import annotations
@@ -23,3 +24,8 @@ class InconsistentPublicInputsLen(KogarashiError):
         super().__init__(f"expected {expected} public inputs, got {provided}")
         self.expected = expected
         self.provided = provided
+
+
+class MalformedProof(KogarashiError):
+    """Structural defect in a proof: wrong x-vector or witness lengths
+    (nova/src/proof.rs:44-52)."""

@@ -9,10 +9,13 @@ Two source layouts exist in `kogarashi_tpu`:
     x * 2^260 * 2^252 * 2^-256 = x * 2^256.
 
 `params_from_jax` turns the JAX package's Groth16 `Parameters` into the
-port's, so both provers can run on the same keys. This module takes numpy
-arrays, and points by their integer coordinates; it imports nothing of the
-JAX package. The verifying key's points are rebuilt as the port's own pyref
-points, so the port's verifier takes them.
+port's, so both provers can run on the same keys; `public_params_from_jax`
+and `recursive_proof_from_jax` do the same for Nova's public parameters and
+recursive proofs, so both packages can fold with the same keys. This module
+takes numpy arrays, points by their integer coordinates, R1CS rows by their
+(wire, coefficient) terms and drivers by name; it imports nothing of the JAX
+package. Points are rebuilt as the port's own pyref points, so the port's
+verifiers take them.
 """
 
 from __future__ import annotations
@@ -20,12 +23,24 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .curves import G1, G2
+from .curves import G1, G2, GRUMPKIN
 from .devices import resolve
 from .fields import mont
 from .fields.spec import FQ, FieldSpec, ints_to_words
 from .groth16.keys import Parameters, VerifyingKey
+from .nova import function
+from .nova.ivc import PublicParams
+from .nova.pedersen import PedersenCommitment
+from .nova.proof import RecursiveProof
+from .nova.relaxed_r1cs import (
+    R1csInstance,
+    R1csShape,
+    R1csWitness,
+    RelaxedR1csInstance,
+    RelaxedR1csWitness,
+)
 from .pyref import AffinePoint
+from .r1cs import BN254_DRIVER, GRUMPKIN_DRIVER, LinComb
 
 
 def words_from_limbs16(a) -> np.ndarray:
@@ -116,3 +131,83 @@ def params_from_jax(jp, device=None) -> Parameters:
         num_wires=jp.num_wires,
     )
 
+
+# ---------------------------------------------------------------------------
+# Nova
+# ---------------------------------------------------------------------------
+
+
+DRIVERS = {d.name: d for d in (BN254_DRIVER, GRUMPKIN_DRIVER)}
+
+
+def commit_point(driver, q) -> AffinePoint:
+    """A point on `driver`'s commitment curve, by integer coordinates."""
+    return port_point(G1 if driver.commit_curve.name == "G1" else GRUMPKIN, q)
+
+
+def shape_from_jax(js, device=None):
+    """A JAX `R1csShape` -> the port's, its rows rebuilt from their
+    (wire, coefficient) terms, its products on `device` (None: the card)."""
+    driver = DRIVERS[js.driver.name]
+    p = driver.scalar.p
+    rows = [[LinComb(p, dict(row.terms)) for row in getattr(js, k)] for k in ("a", "b", "c")]
+    return R1csShape(driver=driver, m=js.m, instance_length=js.instance_length,
+                     witness_length=js.witness_length, a=rows[0], b=rows[1], c=rows[2],
+                     device=resolve(device))
+
+
+def public_params_from_jax(pp, device=None):
+    """`kogarashi_tpu.nova.PublicParams` -> the port's, on `device` (None:
+    the card): both shapes, both Pedersen keys (their materialized points,
+    by integer coordinates) and the step functions, taken by class name
+    from `nova.function`."""
+    device = resolve(device)
+    shapes = [shape_from_jax(s, device) for s in (pp.shape_primary, pp.shape_secondary)]
+    keys = []
+    for shape, ck in zip(shapes, (pp.ck_primary, pp.ck_secondary)):
+        spec = shape.driver.commit_curve
+        keys.append(PedersenCommitment.from_points(
+            spec, ck.key_len, [commit_point(shape.driver, q) for q in ck.g], device))
+
+    def step(fc):
+        if not hasattr(function, fc.__name__):
+            raise ValueError(f"no step function {fc.__name__} in kogarashi_tpu_torch.nova.function")
+        return getattr(function, fc.__name__)
+
+    return PublicParams(shape_primary=shapes[0], shape_secondary=shapes[1], ck_primary=keys[0],
+                        ck_secondary=keys[1], fc_primary=step(pp.fc_primary),
+                        fc_secondary=step(pp.fc_secondary))
+
+
+def instance_from_jax(driver, u):
+    """A JAX `R1csInstance` whose commitment lies on `driver`'s commitment
+    curve -> the port's."""
+    return R1csInstance(commit_w=commit_point(driver, u.commit_w), x=[int(v) for v in u.x])
+
+
+def relaxed_instance_from_jax(u):
+    """A JAX `RelaxedR1csInstance` -> the port's (its driver by name)."""
+    driver = DRIVERS[u.driver.name]
+    return RelaxedR1csInstance(driver=driver, commit_w=commit_point(driver, u.commit_w),
+                               commit_e=commit_point(driver, u.commit_e), u=int(u.u),
+                               x=[int(v) for v in u.x])
+
+
+def recursive_proof_from_jax(proof):
+    """`kogarashi_tpu.nova.RecursiveProof` -> the port's."""
+    u_range_secondary = relaxed_instance_from_jax(proof.u_range_secondary)
+    return RecursiveProof(
+        i=proof.i,
+        z0_primary=[int(v) for v in proof.z0_primary],
+        z0_secondary=[int(v) for v in proof.z0_secondary],
+        zi_primary=[int(v) for v in proof.zi_primary],
+        zi_secondary=[int(v) for v in proof.zi_secondary],
+        u_single_secondary=instance_from_jax(u_range_secondary.driver, proof.u_single_secondary),
+        w_single_secondary=R1csWitness(w=[int(v) for v in proof.w_single_secondary.w]),
+        u_range_primary=relaxed_instance_from_jax(proof.u_range_primary),
+        w_range_primary=RelaxedR1csWitness(w=[int(v) for v in proof.w_range_primary.w],
+                                           e=[int(v) for v in proof.w_range_primary.e]),
+        u_range_secondary=u_range_secondary,
+        w_range_secondary=RelaxedR1csWitness(w=[int(v) for v in proof.w_range_secondary.w],
+                                             e=[int(v) for v in proof.w_range_secondary.e]),
+    )

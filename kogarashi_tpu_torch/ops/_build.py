@@ -152,7 +152,7 @@ def _demangle(name: str) -> str:
                  "fp_mul_call", "imad_wide_probe_kernel", "imad_probe_kernel",
                  "mul_latency_kernel", "empty_kernel", "spin_kernel"):
         if kern in name:
-            tags = [t for t in ("G1", "G2", "Fq", "Fr") if t in name]
+            tags = [t for t in ("G1", "G2", "Grumpkin", "Fq", "Fr") if t in name]
             tags += re.findall(r"Li(\d+)E", name) + re.findall(r"Lb([01])E", name)
             return f"{kern}<{','.join(tags)}>" if tags else kern
     return name
@@ -164,7 +164,7 @@ def lib() -> ctypes.CDLL:
     if _LIB is None:
         path = build()
         handle = ctypes.CDLL(str(path))
-        for curve in ("g1", "g2"):
+        for curve in ("g1", "g2", "grumpkin"):
             for fmt, args in _SIGNATURES.items():
                 fn = getattr(handle, fmt.format(c=curve))
                 fn.argtypes = args

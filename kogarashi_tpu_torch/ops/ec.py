@@ -3,12 +3,13 @@
 Counterpart of `kogarashi_tpu/ops/ec_pallas.py`: `madd` :218, `padd` :241,
 `pdouble` :264 (RCB16 Alg 8/7/9, a = 0, identity (0:1:0)), and the kernels
 `scan_mixed` :416, `scan_proj` :427, `map_padd` :479, `map_pdouble` :487.
-The CUDA kernels are in `csrc/ec.cu`, instantiated for G1 (Fq) and G2 (Fq2).
+The CUDA kernels are in `csrc/ec.cu`, instantiated for G1 (Fq), G2 (Fq2)
+and Grumpkin (Fr).
 
 Shapes follow the JAX package: scans take (rows, L, C) word tensors and
 return the inclusive per-chunk prefix sums S[:, j, c] = sum of chunk c's
-elements 0..j; maps take (rows, C). rows = 8 (G1) or 16 (G2); int32 words in
-Montgomery form, canonical in and out.
+elements 0..j; maps take (rows, C). rows = 8 (G1, Grumpkin) or 16 (G2);
+int32 words in Montgomery form, canonical in and out.
 
 Dispatch: a CUDA tensor launches the kernel (and counts the launch in
 `LAUNCHES`, K2's and K4's also by lane group in `GROUP_LAUNCHES`); a CPU
@@ -27,7 +28,7 @@ from ..fields import mont
 from . import _build
 
 KERNELS = ("scan_mixed", "scan_proj", "map_padd", "map_pdouble")
-LAUNCHES: dict = {f"{k}_{c}": 0 for k in KERNELS for c in ("g1", "g2")}
+LAUNCHES: dict = {f"{k}_{c}": 0 for k in KERNELS for c in ("g1", "g2", "grumpkin")}
 GROUP_LAUNCHES: dict = {}  # "scan_proj_g1" -> {g: launches}, K2 and K4
 
 
@@ -187,11 +188,15 @@ def _check(curve: Curve, ts, ndim: int):
 # of the first row whose bound C meets. The rows come from timing every g at
 # each shape of the main path on an H100 (`profile_lanes.py`, PERF.md); each
 # g named here is built in csrc/ec.cu, and no other (1: the one-thread kernel).
+# Grumpkin builds G1's sizes; its K2 rows come from its own shapes, those of
+# one Nova secondary commit (78982 points).
 LANE_GROUPS = {
     ("scan_proj", "g1"): ((32768, 1), (8192, 2), (4096, 4), (0, 8)),
     ("scan_proj", "g2"): ((16384, 1), (2048, 8), (0, 16)),
+    ("scan_proj", "grumpkin"): ((32768, 1), (4944, 2), (2480, 4), (0, 8)),
     ("map_pdouble", "g1"): ((8192, 1), (0, 4)),
     ("map_pdouble", "g2"): ((8192, 1), (0, 16)),
+    ("map_pdouble", "grumpkin"): ((8192, 1), (0, 4)),
 }
 
 
@@ -294,11 +299,13 @@ def map_pdouble(curve: Curve, p, times: int = 1, group: int | None = None):
 # mad.hi): 8 rows of 4 chains of 8, and the 8 digits m_i. ptxas fuses each
 # lo/hi pair of a chain into one IMAD.WIDE, which yields both.
 MULADD_PER_MUL = 264
-# Montgomery multiplies per point op, as csrc/ec.cu does them: G1's b3
-# products are adds; G2's are Fq2 multiplies (an Fq2 mul is 3, a square 2)
+# Montgomery multiplies per point op, as csrc/ec.cu does them: G1's and
+# Grumpkin's b3 products are adds; G2's are Fq2 multiplies (an Fq2 mul is 3,
+# a square 2)
 BASE_MULS = {
     ("madd", "g1"): 11, ("padd", "g1"): 12, ("pdouble", "g1"): 8,
     ("madd", "g2"): 39, ("padd", "g2"): 42, ("pdouble", "g2"): 25,
+    ("madd", "grumpkin"): 11, ("padd", "grumpkin"): 12, ("pdouble", "grumpkin"): 8,
 }
 H100_SMS = 132
 # NVIDIA's arithmetic-throughput table (CUDA C++ Programming Guide, compute
@@ -355,7 +362,7 @@ def issue_rates(device, iters: int = 1 << 13) -> dict:
 
 # dependent multiply levels of one doubling on a lane group (csrc/ec.cu
 # `pdouble_group`), for the one-lane critical-path floor chip_smoke.py logs
-PDOUBLE_LEVELS = {"g1": 2, "g2": 3}
+PDOUBLE_LEVELS = {"g1": 2, "g2": 3, "grumpkin": 2}
 
 
 def mul_latency_cycles(device, call: bool, iters: int = 4096) -> float:

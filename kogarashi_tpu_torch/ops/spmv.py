@@ -1,4 +1,4 @@
-"""Sparse matrix-vector products over Fr words in plain PyTorch.
+"""Sparse matrix-vector products over Fr or Fq words in plain PyTorch.
 
 Counterpart of `kogarashi_tpu/ops/spmv.py` (`coo_matvec` :22,
 `r1cs_matrices_device` :47, `matvec` :61, `transposed_matvec` :66). The
@@ -36,21 +36,26 @@ def _encode_coeffs(vals, spec: FieldSpec) -> np.ndarray:
     if isinstance(vals, np.ndarray) and vals.dtype != object:
         uniq, inv = np.unique(vals, return_inverse=True)
         return spec.encode([int(u) for u in uniq])[:, inv.reshape(-1)]
-    return spec.encode(list(vals))
+    index: dict = {}
+    inv = [index.setdefault(int(v), len(index)) for v in vals]
+    return spec.encode(list(index))[:, np.asarray(inv, np.int64)]
+
+
+def coo_matrix(ri, ci, vals, spec: FieldSpec, device) -> dict:
+    """Row indices, column indices and coefficient ints -> a COO dict on
+    `device`."""
+    return dict(
+        row=torch.from_numpy(np.asarray(ri, np.int64)).to(device),
+        col=torch.from_numpy(np.asarray(ci, np.int64)).to(device),
+        coeff=torch.from_numpy(np.ascontiguousarray(_encode_coeffs(vals, spec))).to(device),
+    )
 
 
 def r1cs_matrices(cs, spec: FieldSpec, device=None):
     """Host R1CS (anything with `matrices_coo()`) -> [A, B, C] COO dicts on
     `device` (None: the card)."""
     device = resolve(device)
-    out = []
-    for ri, ci, vals in cs.matrices_coo():
-        out.append(dict(
-            row=torch.from_numpy(np.asarray(ri, np.int64)).to(device),
-            col=torch.from_numpy(np.asarray(ci, np.int64)).to(device),
-            coeff=torch.from_numpy(np.ascontiguousarray(_encode_coeffs(vals, spec))).to(device),
-        ))
-    return out
+    return [coo_matrix(ri, ci, vals, spec, device) for ri, ci, vals in cs.matrices_coo()]
 
 
 def matvec(mat: dict, z, m: int, spec: FieldSpec):

@@ -2,25 +2,28 @@
 
     python3 -m kogarashi_tpu_torch.profile_lanes [--baseline DIR]
 
-For G1 and G2: K2 at each shape one 2^20-point MSM with c = 16 gives it
-(`msm.scan_proj_launches`), K4 with t = 16 at 1 to 2^16 lanes; each at every
-group size built for it (`ops.ec.groups`), checked exactly against the plain
-version and timed on the device (`ec.device_ms`, mean of 20 calls in a row),
-beside the group `ec.lane_group` picks. K2's time summed over one MSM's 20
-launches at the groups the rule picks is logged per curve, and the device
-time of a c = 16 MSM's window combine (`msm.window_combine`, 15 x K4 t = 16 +
-K3 at one lane; mean of 3). Then the latency of one dependent Montgomery
+For G1 and G2 at a 2^20-point MSM with c = 16, and Grumpkin at the MSM of
+one Nova secondary commit (78982 points, c = 16): K2 at each shape the MSM
+gives it (`msm.scan_proj_launches`), K4 with t = 16 at 1 to 2^16 lanes; each
+at every group size built for it (`ops.ec.groups`), checked exactly against
+the plain version and timed on the device (`ec.device_ms`, mean of 20 calls
+in a row), beside the group `ec.lane_group` picks. K2's time summed over one
+MSM's 20 launches at the groups the rule picks is logged per curve, and the
+device time of a c = 16 MSM's window combine (`msm.window_combine`, 15 x K4
+t = 16 + K3 at one lane; mean of 3). K1 at the MSM's scan shape and K3 at
+its width are timed too. Then the latency of one dependent Montgomery
 multiply (csrc/imad_probe.cu, inline and as G2's call) and of an empty
 launch.
 
---baseline DIR: also K2 at the same shapes, K4 at 1 and 2^16 lanes and the
-window combine through the package of another checkout in DIR (its own
-build, its own default launch; for example the parent commit unpacked with
-`git archive`), on the same inputs, exactly against this package's plain
-versions (the combine against this package's), and K2's summed time against
-this package's. The card (nvidia-smi name, power limit) is
-printed on its own line, and one JSON object with every number as the last
-line. Needs a CUDA device.
+--baseline DIR: also K1, K2 and K3 at the same shapes, K4 at 1 and 2^16
+lanes and the window combine through the package of another checkout in DIR
+(its own build, its own default launch; for example the parent commit
+unpacked with `git archive`), on the same inputs, exactly against this
+package's plain versions (the combine against this package's), and K2's
+summed time against this package's; curves the baseline lacks are skipped
+for it. The baseline build's registers and SASS counts are printed. The
+card (nvidia-smi name, power limit) is printed on its own line, and one JSON
+object with every number as the last line. Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -36,12 +39,14 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from .curves import G1, G2
+from .curves import G1, G2, GRUMPKIN, to_affine
 from .ops import ec
 from .ops.fixed_base import fixed_base_mul
-from .ops.msm import scan_proj_launches, window_combine
+from .ops.msm import scan_depth, scan_proj_launches, window_combine
 
 K4_LANES = (1, 4, 16, 64, 256, 1024, 4096, 1 << 16)
+# (curve, seed, MSM points): the Groth16 MSMs, and one Nova secondary commit
+SWEEP = ((G1, 1, 1 << 20), (G2, 2, 1 << 20), (GRUMPKIN, 3, 78982))
 # a combine is about 80 launches; 20 in a row overflow the device's queue of
 # pending launches, so the host blocks behind device_ms's spin
 COMBINE_REPS = 3
@@ -68,7 +73,8 @@ def _load_package(root: Path):
     mod = importlib.util.module_from_spec(spec)
     sys.modules["baseline_kt"] = mod
     spec.loader.exec_module(mod)
-    return importlib.import_module("baseline_kt.ops.ec"), importlib.import_module("baseline_kt.curves")
+    return (importlib.import_module("baseline_kt.ops.ec"), importlib.import_module("baseline_kt.curves"),
+            importlib.import_module("baseline_kt.ops._build"))
 
 
 def _exact(got, want) -> bool:
@@ -86,14 +92,40 @@ def _combine(ec_mod, curve, G, c: int):
 
 
 def sweep(dev, log, baseline=None) -> dict:
-    """Every built g at K2's and K4's shapes; with `baseline` = (ec, curves)
-    of another package, its default launch at the same shapes as well."""
-    out = {"scan_proj": [], "map_pdouble": [], "window_combine": [], "msm_sum_ms": {}}
-    k2 = scan_proj_launches(1 << 20, 16)
-    for curve, seed in ((G1, 1), (G2, 2)):
+    """Every built g at K2's and K4's shapes, K1 and K3 at the MSM's; with
+    `baseline` = (ec, curves, _build) of another package, its default launch
+    at the same shapes as well."""
+    out = {"scan_mixed": [], "map_padd": [], "scan_proj": [], "map_pdouble": [],
+           "window_combine": [], "msm_sum_ms": {}}
+    for curve, seed, n in SWEEP:
         rows = curve.rows
-        old = getattr(baseline[1], curve.name.upper()) if baseline else None
-        pts = _points(curve, max(L * C for (L, C), _ in k2), seed, dev)
+        k2 = scan_proj_launches(n, 16)
+        old = getattr(baseline[1], curve.name.upper(), None) if baseline else None
+        pts = _points(curve, max(n, max(L * C for (L, C), _ in k2)), seed, dev)
+        L1 = scan_depth(16 * n)
+        C1 = 16 * (-(-n // L1))
+        aff = to_affine(curve, pts)
+        gen = torch.Generator(device="cpu").manual_seed(seed)
+        m = pts[0].shape[1]
+        perm = torch.cat([torch.randperm(m, generator=gen) for _ in range(-(-L1 * C1 // m))])[: L1 * C1]
+        k1_in = tuple(t[:, perm.to(dev)].reshape(rows, L1, C1).contiguous() for t in aff[:2])
+        k3_in = (tuple(t[:, :n].contiguous() for t in pts),
+                 tuple(t[:, :n].roll(1, dims=1).contiguous() for t in pts))
+        for kname, shape, args in (("scan_mixed", (rows, L1, C1), k1_in), ("map_padd", (rows, n), k3_in)):
+            want = getattr(ec, f"{kname}_plain")(curve, *args)
+            if not _exact(getattr(ec, kname)(curve, *args), want):
+                raise AssertionError(f"{kname}_{curve.name} {shape} differs")
+            row = dict(curve=curve.name, shape=list(shape),
+                       ms=ec.device_ms(lambda: getattr(ec, kname)(curve, *args), dev, 10))
+            extra = ""
+            if old is not None:
+                if not _exact(getattr(baseline[0], kname)(old, *args), want):
+                    raise AssertionError(f"baseline {kname}_{curve.name} {shape} differs")
+                row["baseline_ms"] = ec.device_ms(lambda: getattr(baseline[0], kname)(old, *args), dev, 10)
+                extra = f"; baseline {row['baseline_ms']:.4f} ms"
+            out[kname].append(row)
+            log(f"{kname}_{curve.name} {shape}: {row['ms']:.4f} ms{extra}")
+        del aff, k1_in, k3_in, want
         sums = {"rule": 0.0, "baseline": 0.0}
         for (L, C), launches in k2:
             a = tuple(t[:, : L * C].reshape(rows, L, C).contiguous() for t in pts)
@@ -106,7 +138,7 @@ def sweep(dev, log, baseline=None) -> dict:
                 row["ms"][g] = ec.device_ms(lambda: ec.scan_proj(curve, *a, group=g), dev)
             sums["rule"] += launches * row["ms"][row["chosen"]]
             extra = ""
-            if baseline:
+            if old is not None:
                 if not _exact(baseline[0].scan_proj(old, *a), want):
                     raise AssertionError(f"baseline scan_proj_{curve.name} {(rows, L, C)} differs")
                 row["baseline_ms"] = ec.device_ms(lambda: baseline[0].scan_proj(old, *a), dev)
@@ -116,8 +148,10 @@ def sweep(dev, log, baseline=None) -> dict:
             log(f"scan_proj_{curve.name} {(rows, L, C)} x{launches}: " + ", ".join(
                 f"g={g} {ms:.4f}" for g, ms in row["ms"].items()) + f" ms; rule g={row['chosen']}{extra}")
         out["msm_sum_ms"][curve.name] = sums
-        log(f"scan_proj_{curve.name} over one MSM's 20 launches: {sums['rule']:.4f} ms at the rule's g"
-            + (f", baseline {sums['baseline']:.4f} ms ({sums['baseline'] / sums['rule']:.2f}x)" if baseline else ""))
+        log(f"scan_proj_{curve.name} over one {n}-point MSM's {sum(k for _, k in k2)} launches: "
+            f"{sums['rule']:.4f} ms at the "
+            f"rule's g" + (f", baseline {sums['baseline']:.4f} ms ({sums['baseline'] / sums['rule']:.2f}x)"
+                           if old is not None else ""))
         for C in K4_LANES:
             p = tuple(t[:, :C].contiguous() for t in pts)
             want = ec.map_pdouble_plain(curve, p, times=16)
@@ -128,7 +162,7 @@ def sweep(dev, log, baseline=None) -> dict:
                     raise AssertionError(f"map_pdouble_{curve.name} {(rows, C)} g={g} differs")
                 row["ms"][g] = ec.device_ms(lambda: ec.map_pdouble(curve, p, times=16, group=g), dev)
             extra = ""
-            if baseline and C in (1, 1 << 16):
+            if old is not None and C in (1, 1 << 16):
                 if not _exact(baseline[0].map_pdouble(old, p, times=16), want):
                     raise AssertionError(f"baseline map_pdouble_{curve.name} {(rows, C)} differs")
                 row["baseline_ms"] = ec.device_ms(lambda: baseline[0].map_pdouble(old, p, times=16), dev)
@@ -142,7 +176,7 @@ def sweep(dev, log, baseline=None) -> dict:
         row = dict(curve=curve.name,
                    ms=ec.device_ms(lambda: window_combine(curve, sums_w, 16), dev, COMBINE_REPS))
         extra = ""
-        if baseline:
+        if old is not None:
             if not _exact(_combine(baseline[0], old, sums_w, 16), want):
                 raise AssertionError(f"baseline window combine {curve.name} differs")
             row["baseline_ms"] = ec.device_ms(lambda: _combine(baseline[0], old, sums_w, 16), dev,
@@ -170,7 +204,12 @@ def main() -> int:
     def log(msg):
         print(f"[lanes] {msg} ({name})", flush=True)
 
-    rec = sweep(dev, log, _load_package(args.baseline.resolve()) if args.baseline else None)
+    baseline = _load_package(args.baseline.resolve()) if args.baseline else None
+    if baseline:
+        baseline[2].lib()
+        for line in baseline[2].ptxas_report() + [f"sass {x}" for x in baseline[2].sass_report()]:
+            log(f"baseline build: {line}")
+    rec = sweep(dev, log, baseline)
     rec["mul_latency_cycles"] = {"inline": ec.mul_latency_cycles(dev, False),
                                  "call": ec.mul_latency_cycles(dev, True)}
     rec["empty_launch_ms"] = ec.empty_launch_ms(dev)

@@ -1,5 +1,6 @@
-"""Pure-Python bigint oracle: BN254 fields, the Fq2/Fq6/Fq12 tower, G1 and G2,
-and the coefficient-based pairing the verifier runs.
+"""Pure-Python bigint oracle: BN254 fields, the Fq2/Fq6/Fq12 tower, G1, G2
+and Grumpkin, the coefficient-based pairing the verifier runs, and Nova's
+MiMC transcript.
 
 The port's own copy of the parts of `kogarashi_tpu/pyref` it uses. Slow,
 obvious Python, used as a test oracle and for O(1) host-side glue (verifying
@@ -8,7 +9,16 @@ keys, proof assembly, verification), never on the hot path.
 
 from .field import Fq, Fr, PrimeField
 from .tower import Fq2, Fq6, Fq12
-from .curve import AffinePoint, CurveSpec, G1_SPEC, G2_SPEC, ProjectivePoint, batch_to_affine
+from .curve import (
+    AffinePoint,
+    CurveSpec,
+    G1_SPEC,
+    G2_SPEC,
+    GRUMPKIN_SPEC,
+    ProjectivePoint,
+    batch_to_affine,
+)
+from .mimc import Mimc, MimcRO, mimc_constants
 
 __all__ = [
     "Fq",
@@ -22,5 +32,9 @@ __all__ = [
     "CurveSpec",
     "G1_SPEC",
     "G2_SPEC",
+    "GRUMPKIN_SPEC",
     "batch_to_affine",
+    "Mimc",
+    "MimcRO",
+    "mimc_constants",
 ]

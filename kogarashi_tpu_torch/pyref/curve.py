@@ -1,12 +1,12 @@
 """Pure-Python short-Weierstrass curve oracle: y^2 = x^3 + b (a = 0).
 
-The port's own copy of `kogarashi_tpu/pyref/curve.py`, for BN254 G1 and G2
-(Grumpkin, which only the JAX package's Nova uses, is left out).
+The port's own copy of `kogarashi_tpu/pyref/curve.py`: BN254 G1 and G2, and
+Grumpkin.
 
-Generic over the coefficient field (Fq for G1, Fq2 for G2). Provides both
-branchy affine arithmetic (the obviously-correct path) and the branchless
-*complete* homogeneous projective formulas (Renes–Costello–Batina 2016,
-Algorithms 7/9 for a=0) that the point kernels use — so the formulas
+Generic over the coefficient field (Fq for G1, Fr for Grumpkin, Fq2 for G2).
+Provides both branchy affine arithmetic (the obviously-correct path) and the
+branchless *complete* homogeneous projective formulas (Renes–Costello–Batina
+2016, Algorithms 7/9 for a=0) that the point kernels use — so the formulas
 themselves are validated here against the affine path.
 
 Parity: zkstd/src/arithmetic/points/weierstrass.rs, zkstd/src/circuit/gadget/curve.rs:89-158.
@@ -222,7 +222,7 @@ class ProjectivePoint:
 
 def make_specs():
     from .. import constants as C
-    from .field import Fq
+    from .field import Fq, Fr
     from .tower import Fq2
 
     g1 = CurveSpec("G1", Fq, Fq(C.G1_B), (Fq(C.G1_GEN[0]), Fq(C.G1_GEN[1])))
@@ -232,7 +232,10 @@ def make_specs():
         Fq2.new(*C.G2_B),
         (Fq2.new(*C.G2_GEN_X), Fq2.new(*C.G2_GEN_Y)),
     )
-    return g1, g2
+    grumpkin = CurveSpec(
+        "Grumpkin", Fr, Fr(C.GRUMPKIN_B), (Fr(C.GRUMPKIN_GEN[0]), Fr(C.GRUMPKIN_GEN[1]))
+    )
+    return g1, g2, grumpkin
 
 
-G1_SPEC, G2_SPEC = make_specs()
+G1_SPEC, G2_SPEC, GRUMPKIN_SPEC = make_specs()

@@ -1,5 +1,5 @@
-"""Host-side R1CS constraint system (the port's own copy of the parts of
-`kogarashi_tpu/r1cs` that Groth16 uses).
+"""Host-side R1CS constraint system (the port's own copy of
+`kogarashi_tpu/r1cs`).
 
 Constraint synthesis is pointer-chasing sparse work and stays on the host
 (Python ints), mirroring the reference semantics (zkstd/src/r1cs.rs,
@@ -8,9 +8,10 @@ device.
 """
 
 from .system import R1CS, Wire, LinComb, ONE
-from .driver import Driver, BN254_DRIVER
+from .driver import Driver, BN254_DRIVER, GRUMPKIN_DRIVER
 from .gadgets.field import FieldAssignment
 from .gadgets.binary import BinaryAssignment
+from .gadgets.curve import PointAssignment
 
 __all__ = [
     "R1CS",
@@ -19,6 +20,8 @@ __all__ = [
     "ONE",
     "Driver",
     "BN254_DRIVER",
+    "GRUMPKIN_DRIVER",
     "FieldAssignment",
     "BinaryAssignment",
+    "PointAssignment",
 ]

@@ -10,7 +10,7 @@ import numpy as np
 import pytest
 import torch
 
-from kogarashi_tpu_torch.curves import G1, G2, decode_points, prepare_points, to_affine
+from kogarashi_tpu_torch.curves import G1, G2, GRUMPKIN, decode_points, prepare_points, to_affine
 from kogarashi_tpu_torch.fields import mont
 from kogarashi_tpu_torch.fields.spec import FQ, FR, MONT_R, ints_to_limbs16
 from kogarashi_tpu_torch.ops import ec
@@ -53,7 +53,11 @@ def test_field_kernel_matches_plain(dev, spec, name):
         assert torch.equal(ec.field_op_cuda(name, op, a, b), getattr(mont, op)(*args, spec=spec)), op
 
 
-@pytest.mark.parametrize("curve", [G1, G2], ids=["g1", "g2"])
+CURVES = [G1, G2, GRUMPKIN]
+CURVE_IDS = ["g1", "g2", "grumpkin"]
+
+
+@pytest.mark.parametrize("curve", CURVES, ids=CURVE_IDS)
 def test_point_kernels_match_plain(dev, curve):
     sc = np.random.default_rng(2).integers(0, 1 << 16, size=(16, 2048), dtype=np.uint32)
     sc[15] &= 0x3FFF
@@ -72,7 +76,7 @@ def test_point_kernels_match_plain(dev, curve):
 
 
 @pytest.mark.parametrize("L,C", [(1, 333), (3, 200), (128, 131)], ids=["L1", "ragged", "L128"])
-@pytest.mark.parametrize("curve", [G1, G2], ids=["g1", "g2"])
+@pytest.mark.parametrize("curve", CURVES, ids=CURVE_IDS)
 def test_scan_mixed_and_map_padd_shapes(dev, curve, L, C):
     """K1 at L = 1 and L = 128 and at a C that is not a multiple of the
     block, and K3 at the same ragged lane count, exactly."""
@@ -90,17 +94,20 @@ def test_scan_mixed_and_map_padd_shapes(dev, curve, L, C):
     assert all(torch.equal(g, w) for g, w in zip(got, want))
 
 
-def test_msm_on_card_matches_oracle(dev):
+@pytest.mark.parametrize("curve", [G1, GRUMPKIN], ids=["g1", "grumpkin"])
+def test_msm_on_card_matches_oracle(dev, curve):
+    """300 points; Grumpkin's scalars (its group order is q) lie near q."""
     rng = random.Random(3)
-    g = G1.pyref_spec.generator
-    pts = [rng.randrange(1, FR.p) * g for _ in range(300)]
-    ks = [rng.randrange(FR.p) for _ in range(300)]
-    x, y, inf = prepare_points(G1, pts, dev)
-    out = msm(G1, x, y, inf, torch.from_numpy(ints_to_limbs16(ks)).to(dev))
-    want = G1.pyref_spec.identity_affine()
+    g = curve.pyref_spec.generator
+    order = FR.p if curve is G1 else FQ.p
+    pts = [rng.randrange(1, order) * g for _ in range(300)]
+    ks = [rng.randrange(order) if curve is G1 else order - 1 - rng.randrange(1 << 64) for _ in range(300)]
+    x, y, inf = prepare_points(curve, pts, dev)
+    out = msm(curve, x, y, inf, torch.from_numpy(ints_to_limbs16(ks)).to(dev))
+    want = curve.pyref_spec.identity_affine()
     for p_, k in zip(pts, ks):
         want = want + k * p_
-    assert decode_points(G1, out)[0] == want
+    assert decode_points(curve, out)[0] == want
 
 
 def _lanes(curve, dev, n, seed):
@@ -116,7 +123,7 @@ def _group_launches(kernel, curve, g):
 
 
 @pytest.mark.parametrize("C", [1, 3, 33, 129, 1040, 1 << 16])
-@pytest.mark.parametrize("curve", [G1, G2], ids=["g1", "g2"])
+@pytest.mark.parametrize("curve", CURVES, ids=CURVE_IDS)
 def test_lane_groups_match_plain(dev, curve, C):
     """K4 (t = 16) and K2 (L = 2) at every built lane group, exactly against
     their plain versions, at C lanes: ragged C, C = 1 and a wide C. K4's
@@ -150,3 +157,23 @@ def test_lane_groups_match_plain(dev, curve, C):
         got = ec.scan_proj(curve, *s, group=g)
         assert all(torch.equal(a, b) for a, b in zip(got, want)), g
         assert _group_launches("scan_proj", curve, g) == n + 1
+
+
+@pytest.mark.parametrize("mode", ["random", "xorshift"])
+@pytest.mark.parametrize("name", ["G1", "Grumpkin"])
+def test_pedersen_commit_matches_host(dev, name, mode):
+    """A Pedersen commit (the MSM over the key's rows on the card) against
+    the host loop, on each commitment curve, with a key sampled on the host
+    (random.Random) and one from the reference stream (fixed-base multiply
+    and to_affine on the card); values near the scalar modulus."""
+    from kogarashi_tpu_torch.nova.pedersen import CURVES as KEY_CURVES, PedersenCommitment
+    from kogarashi_tpu_torch.pyref import G1_SPEC, GRUMPKIN_SPEC
+    from kogarashi_tpu_torch.utils.xorshift import REFERENCE_TEST_SEED, XorShiftRng
+
+    spec = {"G1": G1_SPEC, "Grumpkin": GRUMPKIN_SPEC}[name]
+    rng = random.Random(4) if mode == "random" else XorShiftRng.from_seed(REFERENCE_TEST_SEED)
+    ck = PedersenCommitment(spec, 9, rng, active=300, device=dev)
+    order = KEY_CURVES[name][1]
+    pick = random.Random(5)
+    m = [order - 1 - pick.randrange(1 << 32) for _ in range(250)] + [0, 1]
+    assert ck.commit(m) == ck.commit_host(m)

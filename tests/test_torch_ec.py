@@ -4,8 +4,8 @@ map_pdouble / scan_mixed / scan_proj (mode="xla")`, run eagerly inside
 `jax.disable_jit()`, and against pyref. G1 and G2 at C = 128, L = 2,
 including the identity, P + P and P + (-P). Points are compared decoded to
 affine, exactly, by their integer coordinates: the two packages' pyref
-classes never compare equal. G1 here; G2 in test_torch_ec_g2.py (same
-checks)."""
+classes never compare equal. G1 here; G2 in test_torch_ec_g2.py and
+Grumpkin in test_torch_grumpkin.py (same checks)."""
 
 import random
 
@@ -15,16 +15,16 @@ import pytest
 import torch
 
 from kogarashi_tpu import constants as C
-from kogarashi_tpu.curves import G1 as JG1, G2 as JG2
+from kogarashi_tpu.curves import G1 as JG1, G2 as JG2, GRUMPKIN as JGRUMPKIN
 from kogarashi_tpu.fields import mont_pallas as M
 from kogarashi_tpu.ops import ec_pallas as E
 from kogarashi_tpu.ops.msm_pallas import curve_k, decode_point
-from kogarashi_tpu_torch.curves import G1, G2, decode_points, encode_projective, prepare_points
+from kogarashi_tpu_torch.curves import G1, G2, GRUMPKIN, decode_points, encode_projective, prepare_points
 from kogarashi_tpu_torch.ops import ec
 
 torch.set_num_threads(2)  # the suite runs several workers side by side
 
-CURVES = {"g1": (G1, JG1), "g2": (G2, JG2)}
+CURVES = {"g1": (G1, JG1), "g2": (G2, JG2), "grumpkin": (GRUMPKIN, JGRUMPKIN)}
 NC, L = 128, 2
 
 
@@ -196,7 +196,7 @@ def test_bound_ms(kernel, curve, shape, times, muls, n_in):
     assert by == ("operations" if t_ops >= t_bytes else "bytes")
 
 
-@pytest.mark.parametrize("name", ["g1", "g2"])
+@pytest.mark.parametrize("name", ["g1", "g2", "grumpkin"])
 def test_map_pdouble_one_lane_t16(name):
     """K4's plain version at the window combine's shape, one lane and
     t = 16, against pyref: 2^16 * P."""
@@ -206,7 +206,7 @@ def test_map_pdouble_one_lane_t16(name):
     assert decode_points(curve, got) == [(1 << 16) * p[0]]
 
 
-@pytest.mark.parametrize("name", ["g1", "g2"])
+@pytest.mark.parametrize("name", ["g1", "g2", "grumpkin"])
 def test_scan_proj_ragged(name):
     """K2's plain version at L = 2 and a C that no lane group divides,
     against pyref prefix sums; chunks hold P + P, P + (-P), P + O, O + Q."""

@@ -31,6 +31,8 @@ def test_port_imports_no_jax():
     # _build/ holds build outputs, not sources
     files = sorted(f for f in PORT.rglob("*.py") if "_build" not in f.relative_to(PORT).parts)
     assert files
+    scanned = {f.relative_to(PORT).parts[0] for f in files}
+    assert {"nova", "utils", "ops", "pyref", "r1cs", "groth16"} <= scanned
     for f in files:
         for mod in _imports(f):
             top = mod.split(".")
@@ -49,7 +51,7 @@ def test_card_tests_import_only_the_port():
         assert mod.split(".")[0] not in ("jax", "jaxlib", "kogarashi_tpu"), mod
 
 
-_BLOCKED_RUN = r"""
+_BLOCK = r"""
 import importlib, pkgutil, random, sys
 
 class Block:
@@ -58,6 +60,9 @@ class Block:
             raise ImportError(f"{name} is blocked")
 
 sys.meta_path.insert(0, Block())
+"""
+
+_BLOCKED_RUN = _BLOCK + r"""
 import kogarashi_tpu_torch
 for m in pkgutil.walk_packages(kogarashi_tpu_torch.__path__, "kogarashi_tpu_torch."):
     importlib.import_module(m.name)
@@ -74,14 +79,56 @@ print("PROVED")
 """
 
 
+def _run_blocked(script: str) -> str:
+    env = dict(os.environ, PYTHONPATH=str(ROOT), OMP_NUM_THREADS="2")
+    res = subprocess.run([sys.executable, "-c", script], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=600)
+    assert res.returncode == 0, res.stderr[-3000:]
+    return res.stdout
+
+
 def test_port_runs_with_jax_blocked():
     """Both JAX and the JAX package blocked: the port imports, and proves and
     verifies SquareChainCircuit(16) on the CPU."""
-    env = dict(os.environ, PYTHONPATH=str(ROOT), OMP_NUM_THREADS="2")
-    res = subprocess.run([sys.executable, "-c", _BLOCKED_RUN], cwd=ROOT, env=env,
-                         capture_output=True, text=True, timeout=600)
-    assert res.returncode == 0, res.stderr[-3000:]
-    assert "PROVED" in res.stdout
+    assert "PROVED" in _run_blocked(_BLOCKED_RUN)
+
+
+_BLOCKED_FOLD = _BLOCK + r"""
+import torch
+torch.set_num_threads(2)
+from kogarashi_tpu_torch.nova.nifs import NifsProver, NifsVerifier
+from kogarashi_tpu_torch.nova.pedersen import PedersenCommitment
+from kogarashi_tpu_torch.nova.relaxed_r1cs import (R1csShape, RelaxedR1csInstance,
+                                                   RelaxedR1csWitness, r1cs_instance_and_witness)
+from kogarashi_tpu_torch.r1cs import GRUMPKIN_DRIVER, R1CS, FieldAssignment as FA
+
+def cs_for(x_val):
+    cs = R1CS(GRUMPKIN_DRIVER)
+    x = FA.instance(cs, x_val)
+    o = FA.instance(cs, (x_val**3 + x_val + 5) % GRUMPKIN_DRIVER.scalar.p)
+    y = FA.mul(cs, FA.mul(cs, x, x), x)
+    FA.enforce_eq(cs, FA.add(cs, y, x) + FA.constant(cs, 5), o)
+    return cs
+
+shape = R1csShape.from_r1cs(cs_for(4), "cpu")
+ck = PedersenCommitment(GRUMPKIN_DRIVER.commit_curve, 2, random.Random(3), device="cpu")
+x1, w1 = r1cs_instance_and_witness(cs_for(4), shape, ck)
+i1 = RelaxedR1csInstance.from_r1cs_instance(GRUMPKIN_DRIVER, x1)
+wt1 = RelaxedR1csWitness.from_r1cs_witness(shape, w1)
+i2, wt2 = r1cs_instance_and_witness(cs_for(3), shape, ck)
+fi, fw, ct = NifsProver(shape, ck).prove(i1, wt1, i2, wt2)
+assert fi == NifsVerifier.verify(ct, i1, i2)
+assert shape.is_sat_relaxed(fi, fw)
+assert not any(k.split(".")[0] in ("jax", "kogarashi_tpu") for k in sys.modules)
+print("FOLDED")
+"""
+
+
+def test_nifs_fold_with_jax_blocked():
+    """Both JAX and the JAX package blocked: one NIFS fold over the Grumpkin
+    driver (a Grumpkin commitment key) on the CPU, checked by the verifier's
+    fold and the relaxed shape."""
+    assert "FOLDED" in _run_blocked(_BLOCKED_FOLD)
 
 
 def test_chip_smoke_fails_without_gpu(tmp_path):

@@ -1,6 +1,6 @@
-"""The port's own host modules (constants, pyref, r1cs, interop) against the
-JAX package's, on the CPU, and the rule that the port's entry points run on
-the card unless a caller asks for the CPU. Points cross between the two
+"""The port's own host modules (constants, pyref, r1cs, interop, XorShift,
+MiMC, serde) against the JAX package's, on the CPU, and the rule that the
+port's entry points run on the card unless a caller asks for the CPU. Points cross between the two
 packages by their integer coordinates: their pyref classes never compare
 equal."""
 
@@ -19,6 +19,7 @@ from kogarashi_tpu_torch import interop, pyref
 from kogarashi_tpu_torch.curves import G1, G2, encode_projective, prepare_points
 from kogarashi_tpu_torch.fields.spec import FQ, FR
 from kogarashi_tpu_torch.groth16 import SquareChainCircuit, setup
+from kogarashi_tpu_torch.nova import ExampleFunction, PedersenCommitment, PublicParams, R1csShape
 from kogarashi_tpu_torch.ops import ntt, spmv
 from kogarashi_tpu_torch.ops.fixed_base import FixedBaseTable
 from kogarashi_tpu_torch.pyref import pairing_fast
@@ -27,7 +28,8 @@ torch.set_num_threads(2)  # the suite runs several workers side by side
 
 CONSTANTS = ["Q", "R", "BN_X", "SIX_X_PLUS_2", "FR_S", "FR_T", "FQ_S", "FQ_T", "FR_GENERATOR",
              "FQ_GENERATOR", "FR_ROOT_OF_UNITY", "FQ_ROOT_OF_UNITY", "G1_B", "G1_GEN",
-             "G2_GEN_X", "G2_GEN_Y", "FQ2_XI", "G2_B"]
+             "G2_GEN_X", "G2_GEN_Y", "FQ2_XI", "G2_B", "GRUMPKIN_B", "GRUMPKIN_GEN", "MIMC_ROUNDS",
+             "CHALLENGE_BITS", "HASH_BITS", "BN_LIMB_WIDTH", "BN_N_LIMBS"]
 
 
 def test_constants_match_jax():
@@ -132,6 +134,66 @@ def test_params_from_jax_verify_with_port_verifier():
     assert not verifier.verify(proof, [x[0], x[1] + 1])
 
 
+def test_xorshift_stream_matches_jax():
+    """next_u32, next_u64, fill_bytes and field_random give the JAX copy's
+    stream, from the reference seed and from the all-zero seed."""
+    from kogarashi_tpu.utils.xorshift import REFERENCE_TEST_SEED as JSEED, XorShiftRng as JRng
+    from kogarashi_tpu_torch.utils.xorshift import REFERENCE_TEST_SEED, XorShiftRng
+
+    assert REFERENCE_TEST_SEED == JSEED
+    for seed in (REFERENCE_TEST_SEED, bytes(16)):
+        a, b = XorShiftRng.from_seed(seed), JRng.from_seed(seed)
+        assert [a.next_u32() for _ in range(257)] == [b.next_u32() for _ in range(257)]
+        assert [a.next_u64() for _ in range(33)] == [b.next_u64() for _ in range(33)]
+        assert a.fill_bytes(37) == b.fill_bytes(37)
+        assert [a.field_random(p) for p in (C.R, C.Q)] == [b.field_random(p) for p in (C.R, C.Q)]
+
+
+@pytest.mark.parametrize("bits", [128, 252])
+def test_mimc_ro_squeeze_matches_jax(bits):
+    """The port's pure-Python sponge squeezes what the JAX package's does
+    (its native sponge where built), over both field pairings, with points
+    (one the identity) and scalars absorbed."""
+    from kogarashi_tpu.pyref import MimcRO as JMimcRO
+
+    rng = random.Random(bits)
+    for (base, scalar), (jbase, jscalar) in (((pyref.Fq, pyref.Fr), (jpyref.Fq, jpyref.Fr)),
+                                             ((pyref.Fr, pyref.Fq), (jpyref.Fr, jpyref.Fq))):
+        vals = [rng.randrange(base.p) for _ in range(9)]
+        ro, jro = pyref.MimcRO(base, scalar), JMimcRO(jbase, jscalar)
+        ro.append_vec([base(v) for v in vals])
+        jro.append_vec([jbase(v) for v in vals])
+        spec = pyref.G1_SPEC if base is pyref.Fq else pyref.GRUMPKIN_SPEC
+        jspec = jpyref.G1_SPEC if base is pyref.Fq else jpyref.GRUMPKIN_SPEC
+        for k in (3, 0):
+            ro.append_point(k * spec.generator if k else spec.identity_affine())
+            jro.append_point(k * jspec.generator if k else jspec.identity_affine())
+        got, want = ro.squeeze(bits), jro.squeeze(bits)
+        assert type(got) is scalar and got.v == want.v
+
+
+def test_serde_codec_bytes_match_jax():
+    """Codec primitives, fields, vectors and points (G1, Grumpkin, the
+    identity) encode to the JAX copy's bytes; compact lengths across all
+    four SCALE modes."""
+    from kogarashi_tpu.utils.serde import Codec as JCodec
+    from kogarashi_tpu_torch.utils.serde import Codec
+
+    rng = random.Random(3)
+    a, b = Codec(), JCodec()
+    for n in (0, 63, 64, 16383, 16384, (1 << 30) - 1, 1 << 30, 1 << 70):
+        a.compact(n), b.compact(n)
+    a.u8(7).u64(1 << 63).boolean(True), b.u8(7).u64(1 << 63).boolean(True)
+    for p in (C.R, C.Q):
+        vals = [0, 1, p - 1] + [rng.randrange(p) for _ in range(4)]
+        a.field(vals[-1], p).fields(vals, p), b.field(vals[-1], p).fields(vals, p)
+    for spec, jspec in ((pyref.G1_SPEC, jpyref.G1_SPEC), (pyref.GRUMPKIN_SPEC, jpyref.GRUMPKIN_SPEC)):
+        k = rng.randrange(1, C.R)
+        a.point(k * spec.generator).point(spec.identity_affine())
+        b.point(k * jspec.generator).point(jspec.identity_affine())
+    assert a.bytes() == b.bytes()
+
+
 ENTRY_POINTS = {
     "setup": lambda: setup(SquareChainCircuit(4), random.Random(1)),
     "params_from_jax": lambda: interop.params_from_jax(None),
@@ -142,6 +204,12 @@ ENTRY_POINTS = {
     "FixedBaseTable": lambda: FixedBaseTable(G1, c=1, bits=1),
     "Domain": lambda: ntt.Domain(2),
     "r1cs_matrices": lambda: spmv.r1cs_matrices(SquareChainCircuit(4).build(), FR),
+    "PublicParams.setup": lambda: PublicParams.setup(ExampleFunction, ExampleFunction, random.Random(1)),
+    "PedersenCommitment": lambda: PedersenCommitment(pyref.GRUMPKIN_SPEC, 2, random.Random(1)),
+    "PedersenCommitment.from_points": lambda: PedersenCommitment.from_points(
+        pyref.G1_SPEC, 2, [pyref.G1_SPEC.generator]),
+    "R1csShape.from_r1cs": lambda: R1csShape.from_r1cs(SquareChainCircuit(4).build()),
+    "public_params_from_jax": lambda: interop.public_params_from_jax(None),
 }
 
 
