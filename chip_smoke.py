@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Build the port's CUDA kernels and drive the Groth16 and Nova paths on one GPU.
+"""Build the port's CUDA kernels and drive the Groth16, Nova and RedDSA paths on one GPU.
 
     python3 chip_smoke.py
 
@@ -9,10 +9,10 @@ with the card's name and power limit beside it:
   env      torch / CUDA versions and the card (nvidia-smi name, power limit)
   build    nvcc build of kogarashi_tpu_torch/csrc (one process per source),
            ptxas registers/spills, SASS instruction counts (cuobjdump)
-  field    csrc/field.cuh against the plain field math on 2^16 Fq and Fr
-           elements (mul, sqr, add, sub, neg), exactly, every pair of the
-           carry-chain edge values (0, 1, p-1, p-2, R mod p, p's top word)
-           among them
+  field    csrc/field.cuh against the plain field math on 2^16 Fq, Fr and
+           BLS12-381 Fr elements (mul, sqr, add, sub, neg), exactly, every
+           pair of the carry-chain edge values (0, 1, p-1, p-2, R mod p, p's
+           top word, values just below p) among them
   msm      2^20 G1 MSM (bench.py's workload, c = 16) and a 2^16 G2 MSM
            against a host oracle; median of 3 with the host copy inside; the
            scan_proj (K2) launches each MSM made, held against
@@ -34,24 +34,47 @@ with the card's name and power limit beside it:
            cycles, csrc/imad_probe.cu, + an empty launch); then the IMAD and
            IMAD.WIDE issue rates, measured (csrc/imad_probe.cu), beside the
            rate the bound assumes
+  curves   the generic point ops (`curves.point`): scalar_mul on K3 / K4
+           for G1 and Grumpkin at 256 lanes and G2 at 64, edge scalars among
+           them, against the host oracle; on_curve and to_affine on the
+           results; the K3 / K4 launches these calls made
+  edwards  E1-E3 (csrc/edwards.cu) exactly against their plain versions:
+           E2 and E3 at 2^16 lanes and at the signature path's 1024, E1 at
+           2048 lanes (the plain version timed there) and at 16384 (eight
+           tiles of the 2048, each held to the plain result), edge scalars
+           among them; timed on the device beside `ops/edwards.py::bound_ms`,
+           E1 also beside its critical-path floor
+  signature  RedDSA over Jubjub: 1024 signatures (64 keys, 32-byte messages,
+           random.Random(SIG_SEED)), three of them bad (S + 1, a changed
+           message, R bytes that do not decompress); `batch_verify` on the
+           card equals the host verify on every lane, exactly those three
+           rejected; E1-E3 must each have launched in that run; then timed at
+           1024 and 8192 signatures (the 1024 tiled) with its split (host
+           hashing and decompression, encode, E1, the combine, decode), beside
+           the host verify's time per signature
   groth16  SquareChainCircuit(2^20): setup -> prove -> verify on the card,
-           a tampered public input rejected; the kernel launch counters of
-           this run must all be > 0 for G1 and G2, and K2's and K4's by lane
-           group (`ec.GROUP_LAUNCHES`) for every group of K2 and K4's
-           one-lane one
+           a tampered public input rejected, the proof encoded, decoded (G2
+           subgroup check included) and verified again; the kernel launch
+           counters of this run must all be > 0 for G1 and G2, and K2's and
+           K4's by lane group (`ec.GROUP_LAUNCHES`) for every group of K2 and
+           K4's one-lane one
   nova     Nova IVC at the fixture's full size (`phase_nova`): the 3-step
            chain under the reference seed verifies, rejects a tampered z_i,
            and its proof's sha256 is the JAX package's; every Grumpkin and G1
-           kernel, and every Grumpkin lane group, launched in it; then a
+           kernel, and every Grumpkin lane group, launched in it; its bytes
+           decode, and `pallet.NovaPallet.verify` accepts them (event
+           ProofVerified), `SamplePallet.set_thing_1` sets its value, and the
+           bytes with one commitment byte flipped raise MalformedProof; then a
            timed chain (random.Random(99)): setup, each step, steps/s,
            verify, and a folding step's split into synthesis, cross term,
            G1 and Grumpkin commits, transcripts and folds
 The last lines are the kernels' JSON record (name, route, source, replaces,
 launches (on the kernel's path: Groth16's for G1 and G2, Nova's for
-Grumpkin), path, launches_by_path, max_abs_err, ms, plain_ms, bound_ms,
+Grumpkin, the 1024-signature batch_verify's for E1-E3), path,
+launches_by_path, max_abs_err, ms, plain_ms, bound_ms,
 bound_by, bound_share, library_ms, shape, times, g for K2 and K4, their
 other shapes, for K2 and K4 launches_by_g, for K2 msm_sum_ms and
-msm_sum_bound_ms, for K4 at one lane floor_ms), the card, and
+msm_sum_bound_ms, for K4 at one lane and E1 floor_ms), the card, and
 {"ok": true, "device": {...}}. Without a CUDA device it exits non-zero.
 """
 
@@ -79,7 +102,18 @@ NOVA_COMMIT = 78982
 NOVA_PROOF_DIGEST = "488173b8bec07319e19a6949aaf43069f72932c78de84983e2c250d8af183f56"
 NOVA_STEPS = 10  # the timed chain's steps (benches/ivc_chain.py's seed, 99)
 NOVA_PHASE_S = 90  # ... cut to 5 steps if 10 would take the chain longer
+SIG_SEED = 0x5EED  # random.Random seed of the signature phase's keys, messages and signatures
+SIG_N, SIG_KEYS, SIG_TILES = 1024, 64, 8  # signatures, keys; the timed 8192 tiles the 1024
+SIG_BAD = {100: "S + 1", 517: "a changed message", 903: "R bytes that do not decompress"}
+E1_LANES = 2 * SIG_N  # E1's lanes on the 1024-signature path; timed also at SIG_TILES times that
+ED_MAP_LANES = 1 << 16  # E2 and E3 are timed here and at the path's SIG_N
 EC_SOURCE = "kogarashi_tpu_torch/csrc/ec.cu"
+ED_SOURCE = "kogarashi_tpu_torch/csrc/edwards.cu"
+ED_REPLACES = {
+    "ed_scalar_mul": "kogarashi_tpu/curves/edwards.py:110 (scalar_mul, a lax.scan under jax.jit; XLA, no Pallas kernel)",
+    "ed_map_add": "kogarashi_tpu/curves/edwards.py:77 (eadd, with eneg :67; XLA, no Pallas kernel)",
+    "ed_map_double": "kogarashi_tpu/curves/edwards.py:96 (edouble; XLA, no Pallas kernel)",
+}
 REPLACES = {
     "scan_mixed": "kogarashi_tpu/ops/ec_pallas.py:336",
     "scan_proj": "kogarashi_tpu/ops/ec_pallas.py:336",
@@ -169,12 +203,12 @@ def max_abs_err(a, b) -> int:
 
 
 def edge_values(p: int) -> list[int]:
-    """Carry-chain edge cases: 0, 1, p - 1, p - 2, R mod p, and values below
-    p whose top word is p's top word."""
+    """Carry-chain edge cases: 0, 1, p - 1, p - 2, R mod p, values below p
+    whose top word is p's top word, and values just below p."""
     top, low = p >> 224, p & ((1 << 224) - 1)
     rng = random.Random(p & 0xFFFF)
     return [0, 1, p - 1, p - 2, (1 << 256) % p, top << 224,
-            *((top << 224) | rng.randrange(low) for _ in range(8))]
+            *((top << 224) | rng.randrange(low) for _ in range(8)), p - 3, p - (1 << 32), p - (1 << 128)]
 
 
 def phase_field(dev, card: str, n: int = 1 << 16) -> None:
@@ -182,11 +216,11 @@ def phase_field(dev, card: str, n: int = 1 << 16) -> None:
     import torch
 
     from kogarashi_tpu_torch.fields import mont
-    from kogarashi_tpu_torch.fields.spec import FQ, FR
+    from kogarashi_tpu_torch.fields.spec import BLS_FR, FQ, FR
     from kogarashi_tpu_torch.ops.ec import field_op_cuda
 
     rng = np.random.default_rng(7)
-    for spec, name in ((FQ, "fq"), (FR, "fr")):
+    for spec, name in ((FQ, "fq"), (FR, "fr"), (BLS_FR, "blsfr")):
         edges = edge_values(spec.p)
         pairs = [(x, y) for x in edges for y in edges]  # every pair, (p-1)(p-1) among them
 
@@ -205,7 +239,8 @@ def phase_field(dev, card: str, n: int = 1 << 16) -> None:
             if not torch.equal(got, want):
                 raise AssertionError(f"field {name} {op}: CUDA differs from the plain version")
         log("field", f"{spec.name}: mul sqr add sub neg exact on {n} elements, the first "
-                     f"{len(pairs)} every pair of the edge values (0, 1, p-1, p-2, R mod p, p's top word)")
+                     f"{len(pairs)} every pair of the edge values (0, 1, p-1, p-2, R mod p, p's top word, "
+                     f"just below p)")
 
 
 def random_points(curve, m: int, seed: int, dev):
@@ -405,12 +440,234 @@ def msm_check(curve, log_n: int, c, seed_pts: int, seed_sc: int, dev, card: str,
     return med, adds, k2_shapes
 
 
+def phase_curves(dev, card) -> dict:
+    """The generic point ops on K3 / K4 (`curves.point`): scalar_mul for G1
+    and Grumpkin at 256 lanes and G2 at 64, edge scalars (0, 1, order - 1,
+    order, 2^256 - 1) and an identity lane among them, against the host
+    oracle; on_curve and to_affine on the results. Returns the K3 / K4
+    launches these calls made (each scalar_mul: 256 of each)."""
+    import torch
+
+    from kogarashi_tpu_torch.curves import G1, G2, GRUMPKIN, decode_affine, decode_points, encode_projective, point
+    from kogarashi_tpu_torch.fields.spec import FQ, FR, ints_to_limbs16
+    from kogarashi_tpu_torch.ops import ec
+
+    ec.reset_launches()
+    for curve, lanes, order in ((G1, 256, FR.p), (GRUMPKIN, 256, FQ.p), (G2, 64, FR.p)):
+        rng = random.Random(lanes + curve.rows)
+        g = curve.pyref_spec.generator
+        bases = [rng.randrange(1, order) * g for _ in range(15)] + [curve.pyref_spec.identity_affine()]
+        pts = [bases[i % 16] for i in range(lanes)]
+        ks = [0, 1, order - 1, order, (1 << 256) - 1] + [rng.randrange(1 << 256) for _ in range(lanes - 5)]
+        p = encode_projective(curve, pts, dev)
+        k = torch.from_numpy(ints_to_limbs16(ks)).to(dev)
+        before = (ec.LAUNCHES[f"map_padd_{curve.name}"], ec.LAUNCHES[f"map_pdouble_{curve.name}"])
+        out, ms = timed(lambda: point.scalar_mul(curve, p, k))
+        launched = (ec.LAUNCHES[f"map_padd_{curve.name}"] - before[0],
+                    ec.LAUNCHES[f"map_pdouble_{curve.name}"] - before[1])
+        want = [kk * q for kk, q in zip(ks, pts)]
+        if decode_points(curve, out) != want:
+            raise AssertionError(f"curves: {curve.name} scalar_mul differs from the host oracle")
+        if not bool(point.on_curve(curve, out).all()):
+            raise AssertionError(f"curves: {curve.name} scalar_mul result off the curve")
+        ax, ay, inf = point.to_affine(curve, out)
+        if decode_affine(curve, ax, ay, inf) != want:
+            raise AssertionError(f"curves: {curve.name} to_affine differs from the host oracle")
+        if launched != (256, 256):
+            raise AssertionError(f"curves: {curve.name} scalar_mul made {launched} K3 / K4 launches, not 256 each")
+        log("curves", f"{curve.name} scalar_mul at {lanes} lanes (edge scalars, an identity lane): oracle PASS, "
+                      f"on_curve and to_affine PASS; {ms:.3f} ms, K3 {launched[0]} + K4 {launched[1]} launches "
+                      f"({card})")
+    launches = {k: v for k, v in ec.LAUNCHES.items() if v}
+    log("curves", f"launches: {json.dumps(launches)}")
+    return launches
+
+
+def jubjub_lanes(n: int, seed: int, dev):
+    """n Jubjub points (one in eight the identity, the rest random) with a
+    random Z each, and n scalars: the edge scalars (0, 1, order - 1, order,
+    2^256 - 1, p - 1), then random 256-bit values."""
+    import torch
+
+    from kogarashi_tpu_torch.curves.edwards import JUBJUB
+    from kogarashi_tpu_torch.fields import mont
+    from kogarashi_tpu_torch.fields.spec import BLS_FR, ints_to_limbs16
+
+    rng = random.Random(seed)
+    g = JUBJUB.pyref_spec.generator.to_extended()
+    base = [(rng.randrange(1, JUBJUB.order) * g).to_affine() for _ in range(63)] + [
+        JUBJUB.pyref_spec.identity_affine()]
+    p = JUBJUB.encode_points([base[i % 64] for i in range(n)], dev)
+    z = torch.from_numpy(BLS_FR.encode([rng.randrange(1, BLS_FR.p) for _ in range(n)])).to(dev)
+    p = tuple(mont.mul(c, z, spec=BLS_FR) for c in p)
+    ks = [0, 1, JUBJUB.order - 1, JUBJUB.order, (1 << 256) - 1, BLS_FR.p - 1]
+    ks += [rng.randrange(1 << 256) for _ in range(n - len(ks))]
+    return p, torch.from_numpy(ints_to_limbs16(ks)).to(dev)
+
+
+def phase_edwards(dev, card) -> dict:
+    """E1-E3 exactly against their plain versions and timed on the device
+    beside `ops/edwards.py::bound_ms` (at the SM clock under load). E1 at
+    2048 lanes (the 1024-signature path's; the plain version timed there)
+    and at 16384 (the 8192-signature path's: eight tiles of the 2048 inputs,
+    each held to the plain result), with its critical-path floor
+    (LADDER_LEVELS x 256 x one dependent multiply's cycles, csrc/
+    imad_probe.cu, + an empty launch); E2 (p - q, the path's form) and E3
+    (t = 3) at 2^16 lanes and at the path's 1024."""
+    import torch
+
+    from kogarashi_tpu_torch.curves.edwards import JUBJUB
+    from kogarashi_tpu_torch.ops import ec
+    from kogarashi_tpu_torch.ops import edwards as E
+
+    mul_cycles = ec.mul_latency_cycles(dev, call=False)
+    launch_ms = ec.empty_launch_ms(dev)
+    p, k = jubjub_lanes(E1_LANES, 11, dev)
+    p16, k16 = tuple(c.repeat(1, SIG_TILES) for c in p), k.repeat(1, SIG_TILES)
+    want, plain_ms = timed(lambda: E.scalar_mul_plain(JUBJUB, p, k))
+    clock = sm_clock_under_load(lambda: E.scalar_mul(JUBJUB, p16, k16))
+    log("edwards", f"SM clock under load {clock / 1e6:.0f} MHz; one dependent multiply {mul_cycles:.1f} cycles, "
+                   f"an empty launch {launch_ms:.5f} ms ({card})")
+    record = {}
+    runs = {"ed_scalar_mul": [], "ed_map_add": [], "ed_map_double": []}
+    for lanes, pp, kk in ((E1_LANES, p, k), (E1_LANES * SIG_TILES, p16, k16)):
+        got = E.scalar_mul(JUBJUB, pp, kk)
+        torch.cuda.synchronize()
+        err = max(max_abs_err(tuple(c[:, t * E1_LANES:(t + 1) * E1_LANES] for c in got), want)
+                  for t in range(lanes // E1_LANES))
+        if err:
+            raise AssertionError(f"ed_scalar_mul at {lanes} lanes: kernel differs from the plain version")
+        ms = cuda_ms(lambda: E.scalar_mul(JUBJUB, pp, kk), reps=5)
+        bound, by = E.bound_ms("ed_scalar_mul", lanes, clock, base_lanes=lanes)
+        floor = E.LADDER_LEVELS * 256 * mul_cycles / clock * 1e3 + launch_ms
+        runs["ed_scalar_mul"].append(dict(shape=[8, lanes], times=1, max_abs_err=err, ms=ms,
+                                          plain_ms=plain_ms if lanes == E1_LANES else None, bound_ms=bound,
+                                          bound_by=by, bound_share=bound / ms, floor_ms=floor))
+        log("edwards", f"ed_scalar_mul (8, {lanes}): exact (edge scalars among them); kernel {ms:.4f} ms, bound "
+                       f"{bound:.4f} ms ({by}), share {bound / ms:.3f}, critical-path floor {floor:.4f} ms "
+                       f"({E.LADDER_LEVELS} levels x 256 bits x {mul_cycles:.1f} cycles + a launch)"
+                       + (f", plain {plain_ms:.1f} ms" if lanes == E1_LANES else "") + f" ({card})")
+    del p16, k16, want
+    for lanes in (ED_MAP_LANES, SIG_N):
+        a, _ = jubjub_lanes(lanes, 12, dev)
+        b = tuple(c.roll(1, dims=1).contiguous() for c in a)
+        cases = (("ed_map_add", 1, lambda: E.map_add(JUBJUB, a, b, neg=True),
+                  lambda: E.map_add_plain(JUBJUB, a, b, neg=True)),
+                 ("ed_map_double", 3, lambda: E.map_double(JUBJUB, a, 3),
+                  lambda: E.map_double_plain(JUBJUB, a, 3)))
+        for kname, times, kern, plain in cases:
+            want, plain_ms = timed(plain)
+            got, _ = timed(kern)
+            err = max_abs_err(got, want)
+            if err:
+                raise AssertionError(f"{kname} at {lanes} lanes: kernel differs from the plain version")
+            ms = cuda_ms(kern, reps=20)
+            bound, by = E.bound_ms(kname, lanes, clock, times=times)
+            runs[kname].append(dict(shape=[8, lanes], times=times, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                                    bound_ms=bound, bound_by=by, bound_share=bound / ms))
+            log("edwards", f"{kname} (8, {lanes}) t={times}: exact; kernel {ms:.4f} ms, bound {bound:.4f} ms "
+                           f"({by}), share {bound / ms:.3f}, plain {plain_ms:.3f} ms ({card})")
+    for kname, measured in runs.items():
+        record[f"{kname}_jubjub"] = dict(measured[0], library_ms=None, other_shapes=measured[1:])
+    return record
+
+
+class StageLog(logging.Handler):
+    """Collects `stages.Stages` records of one logger: [(stage, seconds)]."""
+
+    def __init__(self, name: str):
+        super().__init__(logging.INFO)
+        self.logger = logging.getLogger(name)
+        self.stages = []
+
+    def __enter__(self):
+        self.saved = (self.logger.level, self.logger.propagate)
+        self.logger.setLevel(logging.INFO)
+        self.logger.propagate = False
+        self.logger.addHandler(self)
+        return self
+
+    def __exit__(self, *exc):
+        self.logger.removeHandler(self)
+        self.logger.setLevel(self.saved[0])
+        self.logger.propagate = self.saved[1]
+
+    def emit(self, record):
+        _, stage, seconds = record.args
+        self.stages.append((stage, seconds))
+
+
+def phase_signature(dev, card) -> dict:
+    """RedDSA batch verification over Jubjub on the card. 1024 signatures
+    from random.Random(SIG_SEED): 64 keys, 32-byte messages; the lanes of
+    SIG_BAD made bad. The host verify runs on every lane (its time per
+    signature logged); `batch_verify` on the card must equal it on every
+    lane and reject exactly SIG_BAD. The launch counters are read over that
+    first call: E1-E3 must each have launched. Then 1024 and 8192 signatures
+    (the 1024 tiled) are timed with their split (`stages.Stages` in
+    `signature/reddsa.py`, each stage ended by a device synchronisation)."""
+    from kogarashi_tpu_torch.ops import edwards as E
+    from kogarashi_tpu_torch.pyref import JUBJUB_SPEC
+    from kogarashi_tpu_torch.signature import RedDSA, Signature, batch_verify
+
+    rng = random.Random(SIG_SEED)
+    t0 = time.perf_counter()
+    keys = [RedDSA().keygen(rng) for _ in range(SIG_KEYS)]
+    vks, msgs, sigs = [], [], []
+    for i in range(SIG_N):
+        sk, vk = keys[i % SIG_KEYS]
+        msgs.append(bytes(rng.randrange(256) for _ in range(32)))
+        sigs.append(sk.sign(msgs[-1], rng))
+        vks.append(vk)
+    t_sign = time.perf_counter() - t0
+    bad = sorted(SIG_BAD)
+    sigs[bad[0]] = Signature(sigs[bad[0]].r_bytes, (sigs[bad[0]].s + 1) % JUBJUB_SPEC.order)
+    msgs[bad[1]] = bytes([msgs[bad[1]][0] ^ 1]) + msgs[bad[1]][1:]
+    sigs[bad[2]] = Signature(b"\xff" * 32, sigs[bad[2]].s)
+    t0 = time.perf_counter()
+    host = [vk.verify(m, sg) for vk, m, sg in zip(vks, msgs, sigs)]
+    t_host = (time.perf_counter() - t0) / SIG_N
+    if [i for i, ok in enumerate(host) if not ok] != bad:
+        raise AssertionError(f"signature: the host verify rejects {[i for i, ok in enumerate(host) if not ok]}")
+
+    E.reset_launches()  # counts from here on are the signature path's
+    t0 = time.perf_counter()
+    got = batch_verify(vks, msgs, sigs, device=dev)
+    t_first = time.perf_counter() - t0
+    launches = dict(E.LAUNCHES)
+    if got != host:
+        raise AssertionError(f"signature: batch_verify differs from the host verify at "
+                             f"{[i for i, (a, b) in enumerate(zip(got, host)) if a != b]}")
+    missing = [k for k, v in launches.items() if v <= 0]
+    if missing:
+        raise AssertionError(f"kernels not launched on the signature path: {missing}")
+    log("signature", f"{SIG_N} signatures over {SIG_KEYS} keys (signed on the host in {t_sign:.3f} s): "
+                     f"batch_verify on the card equals the host verify on every lane, rejecting exactly "
+                     f"{bad} ({', '.join(SIG_BAD[i] for i in bad)}); first call {t_first:.3f} s; host verify "
+                     f"{t_host * 1e3:.3f} ms per signature ({card})")
+    log("signature", f"launches: {json.dumps(launches)}")
+    for tiles in (1, SIG_TILES):
+        n = SIG_N * tiles
+        with StageLog("kogarashi_tpu_torch.signature.reddsa") as st:
+            t0 = time.perf_counter()
+            got = batch_verify(vks * tiles, msgs * tiles, sigs * tiles, device=dev)
+            total = time.perf_counter() - t0
+        if got != host * tiles:
+            raise AssertionError(f"signature: batch_verify at {n} signatures differs from the host verify")
+        split = ", ".join(f"{k} {v:.4f}" for k, v in st.stages)
+        log("signature", f"batch_verify at {n} signatures: {total:.4f} s, {n / total:.1f} signatures/s "
+                         f"({total / n * 1e3:.4f} ms each; host verify {t_host * 1e3:.3f} ms each); split, s: "
+                         f"{split} ({card})")
+    return launches
+
+
 def phase_groth16(dev, card: str, log2_m: int) -> tuple:
     import torch
 
     from kogarashi_tpu_torch.curves import G1, G2
     from kogarashi_tpu_torch.groth16 import SquareChainCircuit, setup
     from kogarashi_tpu_torch.ops import ec
+    from kogarashi_tpu_torch.utils.serde import decode_groth16_proof, encode_groth16_proof
 
     logging.basicConfig(format="[groth16] %(message)s", stream=sys.stdout)
     for name in ("kogarashi_tpu_torch.groth16.setup", "kogarashi_tpu_torch.groth16.prover"):
@@ -435,6 +692,10 @@ def phase_groth16(dev, card: str, log2_m: int) -> tuple:
         raise AssertionError("Groth16 proof does not verify")
     if bad:
         raise AssertionError("Groth16 verifier accepted a tampered public input")
+    data = encode_groth16_proof(proof)
+    back = decode_groth16_proof(data)  # validates A, C on G1 and B in G2's r-order subgroup
+    if (back.a, back.b, back.c) != (proof.a, proof.b, proof.c) or not verifier.verify(back, cs.x[1:]):
+        raise AssertionError("Groth16: the decoded proof differs or does not verify")
     # every kernel, every lane group of K2 (its 13 shapes span them) and K4's
     # one-lane group (the window combine's)
     want = [(f"scan_proj_{c.name}", g) for c in (G1, G2) for g in ec.groups("scan_proj", c)]
@@ -444,7 +705,8 @@ def phase_groth16(dev, card: str, log2_m: int) -> tuple:
     if missing:
         raise AssertionError(f"kernels not launched on the Groth16 path: {missing}")
     log("groth16", f"SquareChainCircuit(2^{log2_m}): setup {t_setup:.3f} s, prove {t_prove:.3f} s, "
-                   f"verify {t_verify:.3f} s; verify True, tampered input rejected ({card})")
+                   f"verify {t_verify:.3f} s; verify True, tampered input rejected; the proof's {len(data)} "
+                   f"bytes decode (G2 subgroup check) and verify ({card})")
     log("groth16", f"launches: {json.dumps(launches)}")
     log("groth16", f"K2 and K4 launches by lane group g: {json.dumps(by_group)}")
     return launches, by_group
@@ -512,7 +774,9 @@ def phase_nova(dev, card: str) -> tuple:
     from kogarashi_tpu_torch.curves import GRUMPKIN
     from kogarashi_tpu_torch.nova import ExampleFunction, Ivc, PublicParams
     from kogarashi_tpu_torch.ops import ec
-    from kogarashi_tpu_torch.utils.serde import encode_recursive_proof
+    from kogarashi_tpu_torch.errors import MalformedProof
+    from kogarashi_tpu_torch.pallet import NovaPallet, SamplePallet
+    from kogarashi_tpu_torch.utils.serde import Codec, decode_recursive_proof, encode_recursive_proof
     from kogarashi_tpu_torch.utils.xorshift import REFERENCE_TEST_SEED, XorShiftRng
 
     def chain_state(i):
@@ -539,13 +803,37 @@ def phase_nova(dev, card: str) -> tuple:
     t_verify = time.perf_counter() - t0
     launches = dict(ec.LAUNCHES)
     by_group = {k: dict(sorted(v.items())) for k, v in ec.GROUP_LAUNCHES.items()}
-    digest = hashlib.sha256(encode_recursive_proof(proof)).hexdigest()
+    data = encode_recursive_proof(proof)
+    digest = hashlib.sha256(data).hexdigest()
     if not ok:
         raise AssertionError("Nova: the 3-step reference proof does not verify")
     if proof.zi_primary != chain_state(proof.i):
         raise AssertionError(f"Nova: z_i {proof.zi_primary} after {proof.i} steps")
     if digest != NOVA_PROOF_DIGEST:
         raise AssertionError(f"Nova: proof digest {digest}, the JAX package's is {NOVA_PROOF_DIGEST}")
+    # the pallet: the proof's bytes decode on the host and verify on the card
+    if encode_recursive_proof(decode_recursive_proof(data)) != data:
+        raise AssertionError("Nova: the decoded proof does not encode to the same bytes")
+    t0 = time.perf_counter()
+    pallet, sample = NovaPallet(), SamplePallet()
+    if not pallet.verify("alice", data, pp) or pallet.events != [("ProofVerified", "alice")]:
+        raise AssertionError(f"Nova: the pallet rejected the proof's bytes ({pallet.events})")
+    t_pallet = time.perf_counter() - t0
+    if not sample.set_thing_1("bob", 7, data, pp) or sample.thing != 7:
+        raise AssertionError("Nova: SamplePallet.set_thing_1 did not set its value")
+    # one byte of u_single_secondary's commitment flipped: off the curve, so
+    # the decoder raises MalformedProof, as the JAX package's does
+    # (tests/test_torch_serde.py decides it on the CPU)
+    at = len(Codec().compact(proof.i).bytes()) + sum(
+        1 + 32 * len(v) for v in (proof.z0_primary, proof.z0_secondary, proof.zi_primary, proof.zi_secondary))
+    tampered = bytearray(data)
+    tampered[at] ^= 1
+    try:
+        NovaPallet().verify("mallory", bytes(tampered), pp)
+    except MalformedProof:
+        pass
+    else:
+        raise AssertionError("Nova: the pallet took bytes with a flipped commitment byte")
     proof.zi_primary = [(proof.zi_primary[0] + 1) % C.R]
     if proof.verify(pp):
         raise AssertionError("Nova: a proof with a tampered z_i verified")
@@ -559,6 +847,9 @@ def phase_nova(dev, card: str) -> tuple:
     log("nova", f"reference stream: setup {t_setup:.3f} s, Ivc + 3 x prove_step {t_steps:.3f} s, verify "
                 f"{t_verify:.3f} s; verify True, z_i = {proof.i}-fold z^3 + z + 5 from 0, tampered z_i "
                 f"rejected, proof sha256 {digest} = the JAX package's ({card})")
+    log("nova", f"pallet: the proof's {len(data)} bytes decode and NovaPallet.verify accepts them "
+                f"(ProofVerified) in {t_pallet:.3f} s; SamplePallet.set_thing_1 sets 7; a flipped "
+                f"commitment byte raises MalformedProof ({card})")
     log("nova", f"launches: {json.dumps({k: v for k, v in launches.items() if v})}")
     log("nova", f"K2 and K4 launches by lane group g: {json.dumps(by_group)}")
 
@@ -627,6 +918,9 @@ def main() -> int:
     _, _, k2_launches = msm_check(G1, LOG2_MSM, 16, 0xBE7C4, 1, dev, card)
     msm_check(G2, 16, None, 0xBE7C5, 2, dev, card)
     record = phase_ec(dev, card, LOG2_MSM, windows=16, k2_launches=k2_launches)
+    phase_curves(dev, card)
+    ed_record = phase_edwards(dev, card)
+    sig_launches = phase_signature(dev, card)
     paths = {"groth16": phase_groth16(dev, card, LOG2_CONSTRAINTS), "nova": phase_nova(dev, card)}
 
     kernels = []
@@ -640,6 +934,10 @@ def main() -> int:
         if key in by_group:
             entry["launches_by_g"] = by_group[key]
         kernels.append(entry)
+    for key, rec in ed_record.items():
+        kernels.append(dict(name=key, route="cuda", source=ED_SOURCE, replaces=ED_REPLACES[key.rsplit("_", 1)[0]],
+                            launches=sig_launches[key], path="signature",
+                            launches_by_path={"signature": sig_launches[key]}, **rec))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

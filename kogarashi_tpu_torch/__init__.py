@@ -1,4 +1,4 @@
-"""kogarashi_tpu_torch — the Groth16 prove path on PyTorch and hand-written CUDA.
+"""kogarashi_tpu_torch — Groth16, Nova and RedDSA on PyTorch and hand-written CUDA.
 
 A port of `kogarashi_tpu` (JAX + Pallas) to PyTorch with CUDA C++ kernels for
 Hopper (sm_90a). `kogarashi_tpu` stays the reference; this package imports
@@ -8,8 +8,9 @@ passes `device="cpu"` (`devices.py`).
 
 Data layout, everywhere: a field element is 8 little-endian 32-bit words in
 Montgomery form with R = 2^256, stored limb-major as int32 tensors holding
-the bit pattern, shaped (8 * ext, ...): 8 words for Fq/Fr, 16 for Fq2
-(c0 then c1). Every device op returns canonical values in [0, p).
+the bit pattern, shaped (8 * ext, ...): 8 words for Fq, Fr and BLS12-381's
+Fr, 16 for Fq2 (c0 then c1). Every device op returns canonical values in
+[0, p).
 """
 
 __version__ = "0.1.0"

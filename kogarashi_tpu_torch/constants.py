@@ -1,4 +1,4 @@
-"""BN254 constants the port reads, as plain Python ints.
+"""BN254 and Jubjub constants the port reads, as plain Python ints.
 
 The port's own copy of the part of `kogarashi_tpu/constants.py` it uses (the
 port imports nothing of `kogarashi_tpu`); names and values are the same, and
@@ -13,6 +13,8 @@ Parity (reference = KogarashiNetwork/Kogarashi, Rust):
   - Grumpkin b = -17 and generator (1, y): grumpkin/src/params.rs:5-10
   - MiMC rounds and transcript widths: nova/src/hash.rs:7-13
   - BigNat limbs: nova/src/gadget/big_nat.rs:8-9
+  - BLS12-381 Fr and Jubjub (d, order, cofactor, generator):
+    zkstd/tests/jubjub.rs
 """
 
 # Base field of BN254 G1
@@ -93,3 +95,31 @@ HASH_BITS = 252
 # Nova BigNat gadget limb layout (nova/src/gadget/big_nat.rs:8-9)
 BN_LIMB_WIDTH = 64
 BN_N_LIMBS = 4
+
+# Jubjub over the BLS12-381 scalar field (zkstd/tests/jubjub.rs fixture):
+# twisted Edwards -x^2 + y^2 = 1 + d x^2 y^2 (a = -1), d = -(10240/10241).
+# The base curve of RedDSA signatures.
+
+# BLS12-381 scalar field (Jubjub's base field), 255 bits
+BLS_FR = 0x73EDA753299D7D483339D80809A1D80553BDA402FFFE5BFEFFFFFFFF00000001
+BLS_FR_GENERATOR = 7  # multiplicative generator (jubjub.rs BLS_SCALAR_GENERATOR = 7*R)
+BLS_FR_S, BLS_FR_T = two_adicity(BLS_FR)
+assert BLS_FR_S == 32  # zkstd/tests/jubjub.rs: S = 32
+BLS_FR_ROOT_OF_UNITY = pow(BLS_FR_GENERATOR, BLS_FR_T, BLS_FR)
+
+# Jubjub prime-order subgroup order (= its scalar field; jubjub.rs
+# JUBJUB_MODULUS), cofactor 8
+JUBJUB_ORDER = 0x0E7DB4EA6533AFA906673B0101343B00A6682093CCC81082D0970E5ED6F72CB7
+JUBJUB_COFACTOR = 8
+
+# d = -(10240/10241) mod BLS_FR (jubjub.rs EDWARDS_D raw limbs)
+JUBJUB_D = (-10240 * pow(10241, -1, BLS_FR)) % BLS_FR
+assert JUBJUB_D == 0x2A9318E74BFA2B48F5FD9207E6BD7FD4292D7F6D37579D2601065FD6D6343EB1
+
+# Generator of the prime-order subgroup (jubjub.rs X/Y raw limbs)
+JUBJUB_GEN = (
+    0x3FD2814C43AC65A6F1FBF02D0FD6CCE62E3EBB21FD6C54ED4DF7B7FFEC7BEACA,
+    0x12,
+)
+_jx, _jy = JUBJUB_GEN
+assert (-_jx * _jx + _jy * _jy - 1 - JUBJUB_D * _jx * _jx % BLS_FR * _jy * _jy) % BLS_FR == 0

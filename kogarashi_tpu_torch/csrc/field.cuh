@@ -1,4 +1,5 @@
-// 256-bit Montgomery field arithmetic for the port's CUDA kernels.
+// 256-bit Montgomery field arithmetic for the port's CUDA kernels: BN254's
+// Fq and Fr, and BLS12-381's Fr.
 //
 // Replaces the in-kernel limb engine of the TPU kernels,
 // kogarashi_tpu/fields/mont_pallas.py (`mm` :171, `sqr` :214,
@@ -36,24 +37,39 @@
 // multiply-adds plus the 8 digits m_i: the 264 multiply-adds the bound counts
 // (ops/ec.py), of which ptxas fuses each lo/hi pair into one IMAD.WIDE.
 //
-// Bound argument (every function returns a canonical value in [0, p)):
-//   * p < 2^254 for both BN254 fields, q (G1's and G2's base field) and r
-//     (Grumpkin's base field): both have the top word 0x30644e72 < 2^30. So
-//     2p < 2^255 and any sum of two canonical values fits in 8 words with no
-//     carry out. Nothing below depends on which of the two p is.
+// Bound argument (every function returns a canonical value in [0, p)). It
+// needs only p < 2^255, so that 2p < 2^256; nothing below depends on which p
+// it is. The fields:
+//   * BN254's q (G1's and G2's base field) and r (Grumpkin's base field):
+//     top word 0x30644e72 < 2^30, so p < 2^254 and 2p < 2^255, a bit to spare.
+//   * BLS12-381's scalar field (Jubjub's base field, `BlsFr`): top word
+//     0x73eda753 < 2^31, so p < 2^255 and 2p < 2^256, no bit to spare. The
+//     argument below never used the spare bit; for this p each step is
+//     re-derived where it reads the margin.
 //   * mont_mul, with a, b < p. Before row i the running value is t < 2p
 //     (t = 0 before row 0). Row i adds a * b_i <= (2^32 - 1) p and
-//     m_i * p <= (2^32 - 1) p, so every partial sum is below 2p + 2^33 p,
-//     which is below 2^288 = columns 0-8. Y <= t / 2^32 < 2^256, so no chain
-//     on Y carries out of Y[7], whose chains end in a madc.hi with no carry
-//     out, and the carry X passes to Y[7] does not overflow it. m_i makes
-//     column 0 zero; dropping it gives t' = (t + a b_i + m_i p) / 2^32
-//     < (2p + 2 (2^32 - 1) p) / 2^32 = 2p. After row 7 the final add
-//     Y + X / 2^32 is that t' < 2p < 2^255, and one conditional subtract of
-//     p gives [0, p). The sequence was checked word by word, carry flags
-//     included, against integer arithmetic before it was built.
-//   * add: a + b < 2p, one conditional subtract. sub: a - b, adding p back
-//     when it borrows, lands in [0, p). neg(a) = sub(0, a), so 0 maps to 0.
+//     m_i * p <= (2^32 - 1) p, so every partial sum is below
+//     2p + 2 (2^32 - 1) p < 2^33 p, which for p < 2^255 is below 2^288 =
+//     columns 0-8 (BN254: below 2^287). t = X + 2^32 Y with X, Y >= 0, so
+//     Y <= t / 2^32 < 2^256: no chain on Y carries out of Y[7], whose chains
+//     end in a madc.hi with no carry out, and the carry X passes to Y[7] does
+//     not overflow it. m_i makes column 0 zero; dropping it gives
+//     t' = (t + a b_i + m_i p) / 2^32 < (2p + 2 (2^32 - 1) p) / 2^32 < 2p.
+//     After row 7 the final add Y + X / 2^32 is that t' < 2p < 2^256, so
+//     merge_rows' dropped carry out of word 7 is 0, and one conditional
+//     subtract of p gives [0, p). The sequence was checked word by word,
+//     carry flags included, against integer arithmetic before it was built.
+//   * add: a + b < 2p < 2^256, so fp_add's dropped carry out of word 7 is 0;
+//     one conditional subtract. sub: a - b, adding p back when it borrows,
+//     lands in [0, p) (the add-back's carry out is dropped: it is the
+//     borrow's 2^256). neg(a) = sub(0, a), so 0 maps to 0.
+//   * No function sums more than two values before it reduces: a kernel's
+//     3x, 8x, 9x or 51x is a chain of canonical adds, and Edwards' a = -1
+//     negations are canonical subtracts (csrc/edwards.cu).
+//   * chip_smoke.py's field phase and tests/test_torch_cuda.py hold the
+//     engine exact against the plain version (fields/mont.py) on every pair
+//     of edge values of each field: 0, 1, p - 1, p - 2, R mod p, values with
+//     p's top word, and values just below p.
 // There are no lazily reduced values anywhere: the TPU engine's bounded
 // "< 8p" bookkeeping (mont_pallas.py:20-34) is not needed, and every kernel's
 // output equals its plain version's (fields/mont.py) bit for bit.
@@ -98,6 +114,21 @@ struct Fr {
   __device__ __forceinline__ static u32 one(int i) {  // R mod r
     constexpr u32 v[8] = {0x4ffffffbu, 0xac96341cu, 0x9f60cd29u, 0x36fc7695u,
                           0x7879462eu, 0x666ea36fu, 0x9a07df2fu, 0x0e0a77c1u};
+    return v[i];
+  }
+};
+
+// BLS12-381 scalar field, Jubjub's base field (csrc/edwards.cu).
+struct BlsFr {
+  static constexpr u32 inv = 0xffffffffu;  // -p^-1 mod 2^32
+  __device__ __forceinline__ static u32 p(int i) {
+    constexpr u32 v[8] = {0x00000001u, 0xffffffffu, 0xfffe5bfeu, 0x53bda402u,
+                          0x09a1d805u, 0x3339d808u, 0x299d7d48u, 0x73eda753u};
+    return v[i];
+  }
+  __device__ __forceinline__ static u32 one(int i) {  // R mod p
+    constexpr u32 v[8] = {0xfffffffeu, 0x00000001u, 0x00034802u, 0x5884b7fau,
+                          0xecbc4ff5u, 0x998c4fefu, 0xacc5056fu, 0x1824b159u};
     return v[i];
   }
 };

@@ -49,3 +49,4 @@ using namespace kt;
 
 KT_FIELD_ENTRY(fq, Fq)
 KT_FIELD_ENTRY(fr, Fr)
+KT_FIELD_ENTRY(blsfr, BlsFr)

@@ -1,10 +1,14 @@
 """BN254 G1 and G2, and Grumpkin, for the port: constants, host
 encode/decode, batched projective-to-affine.
 
-Counterpart of `kogarashi_tpu/curves/__init__.py::_mk_curves` (:88-124),
-`ec_pallas.CurveK` (:170) and `msm_pallas.curve_k` (:473). A batch of points
-is a tuple of word tensors (X, Y, Z), each (rows, ...) with rows = 8 * ext;
-affine batches are (x, y, inf). The identity is (0 : 1 : 0).
+Counterpart of `kogarashi_tpu/curves/__init__.py` (`Curve` :23, its
+instances `_mk_curves` :88-124), `ec_pallas.CurveK` (:170) and
+`msm_pallas.curve_k` (:473). `encode_projective` and `decode_points` are the
+counterparts of `Curve.encode_points` (:52) and `Curve.decode_points` (:71).
+A batch of points is a tuple of word tensors (X, Y, Z), each (rows, ...)
+with rows = 8 * ext; affine batches are (x, y, inf). The identity is
+(0 : 1 : 0). The batched point ops (`padd`, `pdouble`, `scalar_mul`, ...)
+are in `curves.point`, Jubjub's in `curves.edwards`.
 """
 
 from __future__ import annotations
@@ -14,11 +18,11 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from . import constants as C
-from .devices import resolve
-from .fields import mont
-from .fields.spec import FQ, FR, FieldSpec
-from .pyref import G1_SPEC, G2_SPEC, GRUMPKIN_SPEC, Fq, Fq2
+from .. import constants as C
+from ..devices import resolve
+from ..fields import mont
+from ..fields.spec import FQ, FR, FieldSpec
+from ..pyref import G1_SPEC, G2_SPEC, GRUMPKIN_SPEC, Fq, Fq2
 
 
 @dataclass(frozen=True)

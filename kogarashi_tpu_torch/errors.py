@@ -1,7 +1,7 @@
 """The failure modes the port raises (parity: groth16/src/error.rs,
 nova/src/proof.rs).
 
-The port's own copy of the classes of `kogarashi_tpu/errors.py` it uses.
+The port's own copy of `kogarashi_tpu/errors.py`.
 """
 
 from __future__ import annotations
@@ -16,6 +16,15 @@ class ProverSubVersionCrsAttack(KogarashiError):
     (error.rs: ProverSubVersionCrsAttack)."""
 
 
+class ProverInversionFailed(KogarashiError):
+    """A field inversion of zero inside proving
+    (error.rs: ProverInversionFailed)."""
+
+
+class ProofVerificationError(KogarashiError):
+    """Pairing/hash equation mismatch (error.rs: ProofVerificationError)."""
+
+
 class InconsistentPublicInputsLen(KogarashiError):
     """Public input vector length differs from the verifying key
     (error.rs: InconsistentPublicInputsLen)."""
@@ -27,5 +36,10 @@ class InconsistentPublicInputsLen(KogarashiError):
 
 
 class MalformedProof(KogarashiError):
-    """Structural defect in a proof: wrong x-vector or witness lengths
-    (nova/src/proof.rs:44-52)."""
+    """Structural defect in a decoded proof: wrong x-vector lengths
+    (nova/src/proof.rs:44-52), off-curve or out-of-subgroup points,
+    non-canonical field bytes."""
+
+
+class DecodeError(KogarashiError):
+    """SCALE decoding failed: truncated input or invalid encoding."""

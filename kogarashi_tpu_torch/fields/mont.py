@@ -11,6 +11,8 @@ Every op returns a canonical value in [0, p):
     (CIOS output is < 2p for a < 2^256, b < p);
   * `add`/`sub`/`neg` form a + b, a - b + p or p - a (all in [0, 2p)) and
     apply the same single correction, so `neg(0) == 0`.
+The correction's 8-word carry chain needs only 2p < 2^256: every field here
+has p < 2^255 (BN254's Fq and Fr below 2^254, BLS12-381's Fr below 2^255).
 
 This module is the plain version of `csrc/field.cuh` and the counterpart of
 `kogarashi_tpu/fields/mont.py` and of the plain path of

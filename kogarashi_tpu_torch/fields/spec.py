@@ -88,3 +88,6 @@ class FieldSpec:
 
 FR = FieldSpec("Fr", C.R, C.FR_GENERATOR, C.FR_S, C.FR_ROOT_OF_UNITY)
 FQ = FieldSpec("Fq", C.Q, C.FQ_GENERATOR, C.FQ_S, C.FQ_ROOT_OF_UNITY)
+# BLS12-381's scalar field, Jubjub's base field: 255 bits, so 2p < 2^256 and
+# the sums `mont` forms before its one correction (< 2p) still fit 8 words
+BLS_FR = FieldSpec("BlsFr", C.BLS_FR, C.BLS_FR_GENERATOR, C.BLS_FR_S, C.BLS_FR_ROOT_OF_UNITY)

@@ -11,7 +11,8 @@ Two source layouts exist in `kogarashi_tpu`:
 `params_from_jax` turns the JAX package's Groth16 `Parameters` into the
 port's, so both provers can run on the same keys; `public_params_from_jax`
 and `recursive_proof_from_jax` do the same for Nova's public parameters and
-recursive proofs, so both packages can fold with the same keys. This module
+recursive proofs, so both packages can fold with the same keys;
+`edwards_from_jax` carries Jubjub points. This module
 takes numpy arrays, points by their integer coordinates, R1CS rows by their
 (wire, coefficient) terms and drivers by name; it imports nothing of the JAX
 package. Points are rebuilt as the port's own pyref points, so the port's
@@ -47,6 +48,17 @@ def words_from_limbs16(a) -> np.ndarray:
     """(16, ...) 16-bit limbs -> (8, ...) int32 words (same value)."""
     a = np.asarray(a).astype(np.uint32)
     return (a[0::2] | (a[1::2] << 16)).view(np.int32)
+
+
+def edwards_from_jax(p, device=None):
+    """A JAX Edwards point batch (x, y, t, z), each (16, n) or (16,) 16-bit
+    Montgomery limbs (R = 2^256, `kogarashi_tpu/curves/edwards.py`) -> the
+    port's (X, Y, T, Z), each (8, n) int32 words, on `device` (None: the
+    card)."""
+    device = resolve(device)
+    return tuple(
+        torch.from_numpy(np.ascontiguousarray(words_from_limbs16(np.asarray(c).reshape(16, -1)))).to(device)
+        for c in p)
 
 
 def words_from_limbs13(a) -> np.ndarray:

@@ -1,2 +1,3 @@
-"""Device ops: point kernels (`ec`), Pippenger MSM (`msm`), NTT (`ntt`),
-sparse products (`spmv`), fixed-base multiplication (`fixed_base`)."""
+"""Device ops: Weierstrass point kernels (`ec`), Edwards kernels
+(`edwards`), Pippenger MSM (`msm`), NTT (`ntt`), sparse products (`spmv`),
+fixed-base multiplication (`fixed_base`)."""

@@ -34,6 +34,11 @@ _SIGNATURES = {
     "kt_map_padd_{c}": [P, P, P, P, P, P, P, P, P, I, P],
     "kt_map_pdouble_{c}": [P, P, P, P, P, P, I, I, I, P],
 }
+_ED_SIGNATURES = {  # csrc/edwards.cu, per Edwards curve
+    "kt_ed_scalar_mul_{c}": [P, P, P, P, I, P, P, P, P, P, I, P],
+    "kt_ed_map_add_{c}": [P] * 12 + [I, I, P],
+    "kt_ed_map_double_{c}": [P] * 8 + [I, I, P],
+}
 _FIELD_SIGNATURE = [P, P, P, I, I, P]
 _PROBE_SIGNATURES = {"kt_imad_probe_info": [I, P], "kt_imad_probe": [I, I, I, P, P, P],
                      "kt_mul_latency": [I, I, P, P, P], "kt_empty": [P],
@@ -149,10 +154,13 @@ def sass_report() -> list[str]:
 def _demangle(name: str) -> str:
     for kern in ("scan_mixed_kernel", "scan_proj_group_kernel", "scan_proj_kernel",
                  "pdouble_group_kernel", "padd_kernel", "pdouble_kernel", "field_op_kernel",
+                 "ed_scalar_mul_kernel", "ed_map_add_kernel", "ed_map_double_kernel",
                  "fp_mul_call", "imad_wide_probe_kernel", "imad_probe_kernel",
                  "mul_latency_kernel", "empty_kernel", "spin_kernel"):
         if kern in name:
-            tags = [t for t in ("G1", "G2", "Grumpkin", "Fq", "Fr") if t in name]
+            tags = [t for t in ("G1", "G2", "Grumpkin", "Jubjub", "Fq", "BlsFr", "Fr") if t in name]
+            if "BlsFr" in tags:
+                tags.remove("Fr")
             tags += re.findall(r"Li(\d+)E", name) + re.findall(r"Lb([01])E", name)
             return f"{kern}<{','.join(tags)}>" if tags else kern
     return name
@@ -169,7 +177,11 @@ def lib() -> ctypes.CDLL:
                 fn = getattr(handle, fmt.format(c=curve))
                 fn.argtypes = args
                 fn.restype = ctypes.c_int
-        for fld in ("fq", "fr"):
+        for fmt, args in _ED_SIGNATURES.items():
+            fn = getattr(handle, fmt.format(c="jubjub"))
+            fn.argtypes = args
+            fn.restype = ctypes.c_int
+        for fld in ("fq", "fr", "blsfr"):
             fn = getattr(handle, f"kt_field_op_{fld}")
             fn.argtypes = _FIELD_SIGNATURE
             fn.restype = ctypes.c_int

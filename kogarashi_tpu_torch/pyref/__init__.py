@@ -1,6 +1,7 @@
 """Pure-Python bigint oracle: BN254 fields, the Fq2/Fq6/Fq12 tower, G1, G2
-and Grumpkin, the coefficient-based pairing the verifier runs, and Nova's
-MiMC transcript.
+and Grumpkin, Jubjub over BLS12-381's scalar field, the coefficient-based
+pairing the verifier runs, Nova's MiMC transcript, and (in `subgroup`, not
+exported here) the torsion checks the proof decoders run.
 
 The port's own copy of the parts of `kogarashi_tpu/pyref` it uses. Slow,
 obvious Python, used as a test oracle and for O(1) host-side glue (verifying
@@ -18,6 +19,7 @@ from .curve import (
     ProjectivePoint,
     batch_to_affine,
 )
+from .edwards import BlsScalar, EdwardsAffine, EdwardsExtended, EdwardsSpec, JUBJUB_SPEC
 from .mimc import Mimc, MimcRO, mimc_constants
 
 __all__ = [
@@ -34,6 +36,11 @@ __all__ = [
     "G2_SPEC",
     "GRUMPKIN_SPEC",
     "batch_to_affine",
+    "BlsScalar",
+    "EdwardsAffine",
+    "EdwardsExtended",
+    "EdwardsSpec",
+    "JUBJUB_SPEC",
     "Mimc",
     "MimcRO",
     "mimc_constants",

@@ -1,2 +1,2 @@
-"""Host utilities of Nova: the reference's XorShift stream and the proof
-codec."""
+"""Host utilities: the reference's XorShift stream and the SCALE codec of
+Nova and Groth16 proofs."""

@@ -12,7 +12,7 @@ import torch
 
 from kogarashi_tpu_torch.curves import G1, G2, GRUMPKIN, decode_points, prepare_points, to_affine
 from kogarashi_tpu_torch.fields import mont
-from kogarashi_tpu_torch.fields.spec import FQ, FR, MONT_R, ints_to_limbs16
+from kogarashi_tpu_torch.fields.spec import BLS_FR, FQ, FR, MONT_R, ints_to_limbs16
 from kogarashi_tpu_torch.ops import ec
 from kogarashi_tpu_torch.ops.fixed_base import fixed_base_mul
 from kogarashi_tpu_torch.ops.msm import msm
@@ -28,16 +28,17 @@ def dev():
 
 
 def _edge_values(p: int) -> list[int]:
-    """Values that stress the carry chains: 0, 1, p - 1, p - 2, R mod p, and
-    values below p whose top word is p's top word. The test multiplies every
-    pair, (p - 1) * (p - 1) among them."""
+    """Values that stress the carry chains: 0, 1, p - 1, p - 2, R mod p,
+    values below p whose top word is p's top word, and values just below p.
+    The test multiplies every pair, (p - 1) * (p - 1) among them."""
     top, low = p >> 224, p & ((1 << 224) - 1)
     rng = random.Random(p & 0xFFFF)
     same_top = [top << 224] + [(top << 224) | rng.randrange(low) for _ in range(8)]
-    return [0, 1, p - 1, p - 2, MONT_R % p, *same_top]
+    return [0, 1, p - 1, p - 2, MONT_R % p, *same_top, p - 3, p - (1 << 32), p - (1 << 128)]
 
 
-@pytest.mark.parametrize("spec,name", [(FQ, "fq"), (FR, "fr")], ids=["fq", "fr"])
+@pytest.mark.parametrize("spec,name", [(FQ, "fq"), (FR, "fr"), (BLS_FR, "blsfr")],
+                         ids=["fq", "fr", "blsfr"])
 def test_field_kernel_matches_plain(dev, spec, name):
     rng = np.random.default_rng(1)
     edges = _edge_values(spec.p)
@@ -177,3 +178,98 @@ def test_pedersen_commit_matches_host(dev, name, mode):
     pick = random.Random(5)
     m = [order - 1 - pick.randrange(1 << 32) for _ in range(250)] + [0, 1]
     assert ck.commit(m) == ck.commit_host(m)
+
+
+# ---------------------------------------------------------------------------
+# Edwards kernels E1-E3 (csrc/edwards.cu) and RedDSA batch verification
+# ---------------------------------------------------------------------------
+
+
+def _jubjub_points(n, seed, dev):
+    """n random Jubjub points (one in four the identity) on the card, with a
+    random Z: [z](x, y, xy, 1) for z != 0 is the same point."""
+    from kogarashi_tpu_torch.curves.edwards import JUBJUB
+    from kogarashi_tpu_torch.pyref import JUBJUB_SPEC
+
+    rng = random.Random(seed)
+    g = JUBJUB_SPEC.generator.to_extended()
+    base = [(rng.randrange(1, JUBJUB_SPEC.order) * g).to_affine() for _ in range(8)]
+    pts = [JUBJUB_SPEC.identity_affine() if i % 4 == 3 else base[i % 8] for i in range(n)]
+    p = JUBJUB.encode_points(pts, dev)
+    z = torch.from_numpy(BLS_FR.encode([rng.randrange(1, BLS_FR.p) for _ in range(n)])).to(dev)
+    return pts, tuple(mont.mul(c, z, spec=BLS_FR) for c in p)
+
+
+def test_edwards_kernels_match_plain(dev):
+    """E1 (per-lane and broadcast base; k = 0, 1, order - 1, order, 2^256 - 1,
+    p - 1 among random 256-bit scalars), E2 (with and without the negation)
+    and E3 (t = 1 and 3) exactly against their plain versions, and E1
+    against the oracle, on 333 lanes (a ragged last block)."""
+    from kogarashi_tpu_torch.curves.edwards import JUBJUB, generator
+    from kogarashi_tpu_torch.ops import edwards as E
+
+    n = 333
+    pts, p = _jubjub_points(n, 1, dev)
+    rng = random.Random(2)
+    order = JUBJUB.order
+    ks = [0, 1, order - 1, order, (1 << 256) - 1, BLS_FR.p - 1]
+    ks += [rng.randrange(1 << 256) for _ in range(n - len(ks))]
+    k = torch.from_numpy(ints_to_limbs16(ks)).to(dev)
+    for base in (p, generator(JUBJUB, dev)):
+        before = E.LAUNCHES["ed_scalar_mul_jubjub"]
+        got = E.scalar_mul(JUBJUB, base, k)
+        assert E.LAUNCHES["ed_scalar_mul_jubjub"] == before + 1
+        want = E.scalar_mul_plain(JUBJUB, base, k)
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+    got = JUBJUB.decode_points(E.scalar_mul(JUBJUB, p, k))
+    for i in (0, 1, 2, 3, 4, 5, 6, 7, n - 1):
+        want = JUBJUB.pyref_spec.identity_extended()
+        q, kk = pts[i].to_extended(), ks[i]
+        while kk:  # the oracle without reducing k mod the order
+            if kk & 1:
+                want = want + q
+            q, kk = q.double(), kk >> 1
+        assert got[i] == want.to_affine(), i
+    q = tuple(t.roll(1, dims=1).contiguous() for t in p)
+    for neg in (False, True):
+        assert all(torch.equal(a, b) for a, b in zip(E.map_add(JUBJUB, p, q, neg), E.map_add_plain(JUBJUB, p, q, neg)))
+    for times in (1, 3):
+        assert all(torch.equal(a, b) for a, b in zip(E.map_double(JUBJUB, p, times), E.map_double_plain(JUBJUB, p, times)))
+
+
+def test_batch_verify_on_card(dev):
+    """64 signatures over 8 keys on the card: equal to the host verify, with
+    S + 1, a changed message and R bytes that do not decompress rejected."""
+    from kogarashi_tpu_torch.pyref import JUBJUB_SPEC
+    from kogarashi_tpu_torch.signature import RedDSA, Signature, batch_verify
+
+    rng = random.Random(3)
+    keys = [RedDSA().keygen(rng) for _ in range(8)]
+    vks, msgs, sigs = [], [], []
+    for i in range(64):
+        sk, vk = keys[i % 8]
+        msgs.append(bytes(rng.randrange(256) for _ in range(32)))
+        sigs.append(sk.sign(msgs[-1], rng))
+        vks.append(vk)
+    sigs[5] = Signature(sigs[5].r_bytes, (sigs[5].s + 1) % JUBJUB_SPEC.order)
+    msgs[17] = msgs[17][:-1] + bytes([msgs[17][-1] ^ 1])
+    sigs[40] = Signature(b"\xff" * 32, sigs[40].s)
+    got = batch_verify(vks, msgs, sigs, device=dev)
+    assert got == [v.verify(m, s) for v, m, s in zip(vks, msgs, sigs)]
+    assert [i for i, ok in enumerate(got) if not ok] == [5, 17, 40]
+
+
+def test_generic_scalar_mul_on_card(dev):
+    """curves.point.scalar_mul on K3 / K4 against the oracle, G1 and G2."""
+    from kogarashi_tpu_torch.curves import point
+
+    rng = random.Random(4)
+    for curve in (G1, G2):
+        g = curve.pyref_spec.generator
+        pts = [rng.randrange(1, FR.p) * g for _ in range(3)] + [curve.pyref_spec.identity_affine()]
+        ks = [0, FR.p - 1, (1 << 256) - 1, rng.randrange(1 << 256)]
+        x, y, inf = prepare_points(curve, pts, dev)
+        p = point.from_affine(curve, x, y, inf)
+        out = point.scalar_mul(curve, p, torch.from_numpy(ints_to_limbs16(ks)).to(dev))
+        assert decode_points(curve, out) == [k * q for k, q in zip(ks, pts)]
+        assert point.on_curve(curve, out).all()

@@ -32,7 +32,7 @@ def test_port_imports_no_jax():
     files = sorted(f for f in PORT.rglob("*.py") if "_build" not in f.relative_to(PORT).parts)
     assert files
     scanned = {f.relative_to(PORT).parts[0] for f in files}
-    assert {"nova", "utils", "ops", "pyref", "r1cs", "groth16"} <= scanned
+    assert {"nova", "utils", "ops", "pyref", "r1cs", "groth16", "curves", "signature", "pallet"} <= scanned
     for f in files:
         for mod in _imports(f):
             top = mod.split(".")
@@ -122,6 +122,48 @@ assert shape.is_sat_relaxed(fi, fw)
 assert not any(k.split(".")[0] in ("jax", "kogarashi_tpu") for k in sys.modules)
 print("FOLDED")
 """
+
+
+_BLOCKED_VERIFY = _BLOCK + r"""
+import torch
+torch.set_num_threads(2)
+from kogarashi_tpu_torch.pallet import NovaPallet
+from kogarashi_tpu_torch.pyref import JUBJUB_SPEC
+from kogarashi_tpu_torch.r1cs import GRUMPKIN_DRIVER
+from kogarashi_tpu_torch.nova import RecursiveProof, R1csInstance, R1csWitness
+from kogarashi_tpu_torch.nova import RelaxedR1csInstance, RelaxedR1csWitness
+from kogarashi_tpu_torch.r1cs import BN254_DRIVER
+from kogarashi_tpu_torch.signature import RedDSA, Signature, batch_verify
+from kogarashi_tpu_torch.utils.serde import decode_recursive_proof, encode_recursive_proof
+
+rng = random.Random(1)
+pairs = [RedDSA().keygen(rng) for _ in range(3)]
+msgs = [b"a", b"b", b"c"]
+sigs = [sk.sign(m, rng) for (sk, _), m in zip(pairs, msgs)]
+sigs[2] = Signature(sigs[2].r_bytes, (sigs[2].s + 1) % JUBJUB_SPEC.order)
+assert batch_verify([v for _, v in pairs], msgs, sigs, device="cpu") == [True, True, False]
+
+proof = RecursiveProof(
+    i=1, z0_primary=[0], z0_secondary=[0], zi_primary=[1], zi_secondary=[2],
+    u_single_secondary=R1csInstance.dummy(GRUMPKIN_DRIVER, 2), w_single_secondary=R1csWitness(w=[0]),
+    u_range_primary=RelaxedR1csInstance.dummy(BN254_DRIVER, 2), w_range_primary=RelaxedR1csWitness.dummy(1, 1),
+    u_range_secondary=RelaxedR1csInstance.dummy(GRUMPKIN_DRIVER, 2),
+    w_range_secondary=RelaxedR1csWitness.dummy(1, 1))
+data = encode_recursive_proof(proof)
+assert encode_recursive_proof(decode_recursive_proof(data)) == data
+pallet = NovaPallet()
+assert not pallet.verify("alice", data, None)  # its state hashes do not match
+assert pallet.events == [("InvalidProof", "alice")]
+assert not any(k.split(".")[0] in ("jax", "kogarashi_tpu") for k in sys.modules)
+print("VERIFIED")
+"""
+
+
+def test_batch_verify_and_pallet_with_jax_blocked():
+    """Both JAX and the JAX package blocked: RedDSA batch verification of
+    three signatures (one with S + 1) on the CPU, and the pallet decoding and
+    rejecting a recursive proof."""
+    assert "VERIFIED" in _run_blocked(_BLOCKED_VERIFY)
 
 
 def test_nifs_fold_with_jax_blocked():

@@ -16,20 +16,23 @@ from kogarashi_tpu.pyref import pairing_fast as jpairing
 from kogarashi_tpu.r1cs.vector import SquareChainCircuit as JSquareChainCircuit
 from kogarashi_tpu_torch import constants as C
 from kogarashi_tpu_torch import interop, pyref
-from kogarashi_tpu_torch.curves import G1, G2, encode_projective, prepare_points
+from kogarashi_tpu_torch.curves import G1, G2, edwards, encode_projective, point, prepare_points
 from kogarashi_tpu_torch.fields.spec import FQ, FR
 from kogarashi_tpu_torch.groth16 import SquareChainCircuit, setup
 from kogarashi_tpu_torch.nova import ExampleFunction, PedersenCommitment, PublicParams, R1csShape
 from kogarashi_tpu_torch.ops import ntt, spmv
 from kogarashi_tpu_torch.ops.fixed_base import FixedBaseTable
 from kogarashi_tpu_torch.pyref import pairing_fast
+from kogarashi_tpu_torch.signature import batch_verify
 
 torch.set_num_threads(2)  # the suite runs several workers side by side
 
 CONSTANTS = ["Q", "R", "BN_X", "SIX_X_PLUS_2", "FR_S", "FR_T", "FQ_S", "FQ_T", "FR_GENERATOR",
              "FQ_GENERATOR", "FR_ROOT_OF_UNITY", "FQ_ROOT_OF_UNITY", "G1_B", "G1_GEN",
              "G2_GEN_X", "G2_GEN_Y", "FQ2_XI", "G2_B", "GRUMPKIN_B", "GRUMPKIN_GEN", "MIMC_ROUNDS",
-             "CHALLENGE_BITS", "HASH_BITS", "BN_LIMB_WIDTH", "BN_N_LIMBS"]
+             "CHALLENGE_BITS", "HASH_BITS", "BN_LIMB_WIDTH", "BN_N_LIMBS", "BLS_FR",
+             "BLS_FR_GENERATOR", "BLS_FR_S", "BLS_FR_T", "BLS_FR_ROOT_OF_UNITY", "JUBJUB_ORDER",
+             "JUBJUB_COFACTOR", "JUBJUB_D", "JUBJUB_GEN"]
 
 
 def test_constants_match_jax():
@@ -172,6 +175,37 @@ def test_mimc_ro_squeeze_matches_jax(bits):
         assert type(got) is scalar and got.v == want.v
 
 
+def test_pyref_edwards_and_subgroup_match_jax():
+    """The port's copies of pyref/edwards.py and pyref/subgroup.py: the same
+    Jubjub points, compressed bytes and decompression verdicts, and the same
+    torsion constants and point verdicts as the JAX package's."""
+    from kogarashi_tpu.pyref import edwards as jed, subgroup as jsub
+    from kogarashi_tpu_torch.pyref import subgroup as sub
+
+    rng = random.Random(8)
+    g, jg = pyref.JUBJUB_SPEC.generator.to_extended(), jed.JUBJUB_SPEC.generator.to_extended()
+    for _ in range(3):
+        k = rng.randrange(1 << 256)
+        a, ja = (k * g).to_affine(), (k * jg).to_affine()
+        assert (a.x.v, a.y.v) == (ja.x.v, ja.y.v) and a.to_bytes() == ja.to_bytes()
+        b = (a + a.double()).to_affine()
+        jb = (ja + ja.double()).to_affine()
+        assert (b.x.v, b.y.v) == (jb.x.v, jb.y.v)
+    for raw in (bytes(32), b"\x12" + bytes(31), b"\xff" * 32, bytes(rng.randrange(256) for _ in range(32))):
+        q, jq = pyref.EdwardsAffine.from_bytes(pyref.JUBJUB_SPEC, raw), jed.EdwardsAffine.from_bytes(
+            jed.JUBJUB_SPEC, raw)
+        assert (q is None) == (jq is None) and (q is None or (q.x.v, q.y.v) == (jq.x.v, jq.y.v))
+    assert (sub.BETA.v, sub.LAMBDA) == (jsub.BETA.v, jsub.LAMBDA)
+    assert (sub.PSI_X.c0.v, sub.PSI_X.c1.v, sub.PSI_Y.c0.v, sub.PSI_Y.c1.v) == (
+        jsub.PSI_X.c0.v, jsub.PSI_X.c1.v, jsub.PSI_Y.c0.v, jsub.PSI_Y.c1.v)
+    k = rng.randrange(1, C.R)
+    for spec, jspec in ((pyref.G1_SPEC, jpyref.G1_SPEC), (pyref.G2_SPEC, jpyref.G2_SPEC),
+                        (pyref.GRUMPKIN_SPEC, jpyref.GRUMPKIN_SPEC)):
+        assert sub.validate_point(k * spec.generator) and jsub.validate_point(k * jspec.generator)
+    bad = pyref.AffinePoint(pyref.G1_SPEC, pyref.Fq(123), pyref.Fq(456), False)
+    assert not sub.validate_point(bad)
+
+
 def test_serde_codec_bytes_match_jax():
     """Codec primitives, fields, vectors and points (G1, Grumpkin, the
     identity) encode to the JAX copy's bytes; compact lengths across all
@@ -210,6 +244,13 @@ ENTRY_POINTS = {
         pyref.G1_SPEC, 2, [pyref.G1_SPEC.generator]),
     "R1csShape.from_r1cs": lambda: R1csShape.from_r1cs(SquareChainCircuit(4).build()),
     "public_params_from_jax": lambda: interop.public_params_from_jax(None),
+    "edwards_from_jax": lambda: interop.edwards_from_jax([np.zeros((16, 1), np.uint32)] * 4),
+    "point.identity": lambda: point.identity(G1, 1),
+    "point.generator": lambda: point.generator(G2),
+    "edwards.identity": lambda: edwards.identity(edwards.JUBJUB, 1),
+    "edwards.generator": lambda: edwards.generator(edwards.JUBJUB),
+    "JUBJUB.encode_points": lambda: edwards.JUBJUB.encode_points([pyref.JUBJUB_SPEC.generator]),
+    "batch_verify": lambda: batch_verify([], [], []),
 }
 
 
