@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Build the port's CUDA kernels and drive the Groth16, Nova and RedDSA paths on one GPU.
+"""Build the port's CUDA kernels; drive Groth16 (prove, verify), Nova and RedDSA on one GPU.
 
     python3 chip_smoke.py
 
@@ -58,23 +58,38 @@ with the card's name and power limit beside it:
            counters of this run must all be > 0 for G1 and G2, and K2's and
            K4's by lane group (`ec.GROUP_LAUNCHES`) for every group of K2 and
            K4's one-lane one
+  pairing  the groth16 phase's proof's verify equation, e(A, B) e(acc, -gamma)
+           e(C, -delta), on the card (csrc/pairing.cu): P1 (Miller loop) and
+           P2 (final exponentiation), then P3 (the Fq12 map) compares it with
+           alpha_g1_beta_g2 in Gt; P1-P3 must each have launched in that run;
+           the result equals the host's, bit for bit, and a changed public
+           input is rejected; pairing_device = pairing_fast on (a G1, G2) for
+           a = 1, 2, r - 1 and two seeded values; P1 and P2 held to their
+           plain versions on the card and timed beside their critical-path
+           floors and the host pairing's seconds; P3 at 2^16 lanes, every op
+           (mul, sq, inv, frobenius, conj, mul_by_034), held to its plain
+           version and timed beside its bound
   nova     Nova IVC at the fixture's full size (`phase_nova`): the 3-step
            chain under the reference seed verifies, rejects a tampered z_i,
            and its proof's sha256 is the JAX package's; every Grumpkin and G1
            kernel, and every Grumpkin lane group, launched in it; its bytes
            decode, and `pallet.NovaPallet.verify` accepts them (event
            ProofVerified), `SamplePallet.set_thing_1` sets its value, and the
-           bytes with one commitment byte flipped raise MalformedProof; then a
+           bytes with one commitment byte flipped raise MalformedProof, and
+           the proof re-encoded with w_range_primary.e = [] is rejected;
+           `Ivc.resume` from the decoded bytes takes one step, whose sha256
+           equals the uninterrupted chain's step 4; then a
            timed chain (random.Random(99)): setup, each step, steps/s,
            verify, and a folding step's split into synthesis, cross term,
            G1 and Grumpkin commits, transcripts and folds
 The last lines are the kernels' JSON record (name, route, source, replaces,
 launches (on the kernel's path: Groth16's for G1 and G2, Nova's for
-Grumpkin, the 1024-signature batch_verify's for E1-E3), path,
-launches_by_path, max_abs_err, ms, plain_ms, bound_ms,
-bound_by, bound_share, library_ms, shape, times, g for K2 and K4, their
-other shapes, for K2 and K4 launches_by_g, for K2 msm_sum_ms and
-msm_sum_bound_ms, for K4 at one lane and E1 floor_ms), the card, and
+Grumpkin, the 1024-signature batch_verify's for E1-E3, the verify
+equation's for P1-P3), path, launches_by_path, max_abs_err, ms, plain_ms,
+bound_ms, bound_by, bound_share, library_ms, shape, times, g for K2 and K4,
+their other shapes, for K2 and K4 launches_by_g, for K2 msm_sum_ms and
+msm_sum_bound_ms, for K4 at one lane, E1, P1 and P2 floor_ms, for P1 and P2
+the host's seconds, for P3 its other ops), the card, and
 {"ok": true, "device": {...}}. Without a CUDA device it exits non-zero.
 """
 
@@ -114,6 +129,15 @@ ED_REPLACES = {
     "ed_map_add": "kogarashi_tpu/curves/edwards.py:77 (eadd, with eneg :67; XLA, no Pallas kernel)",
     "ed_map_double": "kogarashi_tpu/curves/edwards.py:96 (edouble; XLA, no Pallas kernel)",
 }
+PAIR_SOURCE = "kogarashi_tpu_torch/csrc/pairing.cu"
+PAIR_REPLACES = {
+    "pair_miller_loop": "kogarashi_tpu/ops/pairing.py:331 (_miller_scan, a lax.scan under jax.jit; XLA, no Pallas kernel)",
+    "pair_final_exp": "kogarashi_tpu/ops/pairing.py:360 (final_exp_device, a lax.scan under jax.jit; XLA, no Pallas kernel)",
+    "f12_map": "kogarashi_tpu/ops/pairing.py:383-385 (f12_mul_jit, f12_sq_jit, f12_inv_jit; with f12_frobenius :233, "
+               "f12_conj :204, f12_mul_by_034 :213; XLA, no Pallas kernel)",
+}
+P3_LANES = 1 << 16  # P3 is held to its plain version and timed at this many lanes, every op
+PAIRING_SEED = 0x9A1
 REPLACES = {
     "scan_mixed": "kogarashi_tpu/ops/ec_pallas.py:336",
     "scan_proj": "kogarashi_tpu/ops/ec_pallas.py:336",
@@ -661,6 +685,126 @@ def phase_signature(dev, card) -> dict:
     return launches
 
 
+def random_fq12_words(n: int, seed: int, dev, rows: int = 96):
+    """(rows, n) canonical Fq words: each component's top word below q's, so
+    every value is below q."""
+    import torch
+
+    from kogarashi_tpu_torch.fields.spec import FQ
+
+    gen = torch.Generator(device="cpu").manual_seed(seed)
+    w = torch.randint(-(1 << 31), 1 << 31, (rows // 8, 8, n), dtype=torch.int64, generator=gen)
+    w[:, 7] = torch.randint(0, FQ.p >> 224, (rows // 8, n), generator=gen)
+    return w.to(torch.int32).reshape(rows, n).to(dev)
+
+
+def phase_pairing(dev, card: str, proof, inputs, pvk) -> tuple:
+    """The Groth16 verify equation of phase_groth16's 2^20 proof on the card:
+    e(A, B) e(acc, -gamma) e(C, -delta) through P1 (`multi_miller_loop_device`)
+    and P2 (`final_exp_device`), held to `pvk.alpha_g1_beta_g2` by P3 (Gt's
+    f - target, `ops/pairing.py::gt_eq_device`). The launch counters are read
+    over that run: P1-P3 must each have launched. The result must equal the
+    host's `final_exp_fast(multi_miller_loop(...))` bit for bit, the Miller
+    loop's too, and a changed public input must be rejected; `pairing_device`
+    must equal `pairing_fast` on (a G1, G2) for a = 1, 2, r - 1 and two seeded
+    values. P1 and P2 are held to their plain versions on the card and timed
+    (`ec.device_ms`) beside their critical-path floors and the host pairing's
+    time for the same equation; P3 at P3_LANES lanes, every op, against its
+    plain version, timed beside its bound."""
+    import torch
+
+    from kogarashi_tpu_torch import constants as C
+    from kogarashi_tpu_torch.ops import ec
+    from kogarashi_tpu_torch.ops import pairing as P
+    from kogarashi_tpu_torch.pyref import G1_SPEC, G2_SPEC
+    from kogarashi_tpu_torch.pyref.pairing_fast import final_exp_fast, multi_miller_loop, pairing_fast
+
+    pairs = proof.pairs(pvk, inputs)
+    t0 = time.perf_counter()
+    host_ml = multi_miller_loop(pairs)
+    t_host_ml = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    host_fe = final_exp_fast(host_ml)
+    t_host_fe = time.perf_counter() - t0
+    host_ok = host_fe == pvk.alpha_g1_beta_g2
+
+    P.reset_launches()  # counts from here on are the verify equation's
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ml = P.multi_miller_loop_device(pairs, dev)
+    fe = P.final_exp_device(ml)
+    ok = P.gt_eq_device(fe, pvk.alpha_g1_beta_g2)
+    t_dev = time.perf_counter() - t0
+    launches = dict(P.LAUNCHES)
+    if not (ok and host_ok):
+        raise AssertionError(f"pairing: the verify equation does not hold (card {ok}, host {host_ok})")
+    missing = [k for k, v in launches.items() if v <= 0]
+    if missing:
+        raise AssertionError(f"kernels not launched on the Groth16 verify equation: {missing}")
+    if not torch.equal(ml, P.encode_fq12(host_ml, dev)) or not torch.equal(fe, P.encode_fq12(host_fe, dev)):
+        raise AssertionError("pairing: the card's Miller loop or final exponentiation differs from the host's")
+    bad = proof.pairs(pvk, [inputs[0], (inputs[1] + 1) % C.R] + list(inputs[2:]))
+    if P.gt_eq_device(P.final_exp_device(P.multi_miller_loop_device(bad, dev)), pvk.alpha_g1_beta_g2):
+        raise AssertionError("pairing: the card accepted a changed public input")
+    rng = random.Random(PAIRING_SEED)
+    g1, g2 = G1_SPEC.generator, G2_SPEC.generator
+    for a in (1, 2, C.R - 1, rng.randrange(1, C.R), rng.randrange(1, C.R)):
+        if P.decode_fq12(P.pairing_device(a * g1, g2, dev)) != pairing_fast(a * g1, g2):
+            raise AssertionError(f"pairing: pairing_device(a G1, G2) differs from pairing_fast at a = {a}")
+    log("pairing", f"2^{LOG2_CONSTRAINTS} Groth16 proof's verify equation on P1 + P2 (+ P3's Gt check): holds "
+                   f"({t_dev * 1e3:.2f} ms wall with the host's line encoding), equal to the host's Miller loop and "
+                   f"final exponentiation bit for bit; a changed public input rejected; pairing_device = "
+                   f"pairing_fast at a = 1, 2, r - 1 and two seeded values; host pairing of the same equation: "
+                   f"Miller loop {t_host_ml:.4f} s + final exponentiation {t_host_fe:.4f} s ({card})")
+    log("pairing", f"launches: {json.dumps(launches)}")
+
+    mul_cycles = ec.mul_latency_cycles(dev, call=True)
+    launch_ms = ec.empty_launch_ms(dev)
+    a = random_fq12_words(P3_LANES, 1, dev)
+    b = random_fq12_words(P3_LANES, 2, dev)
+    c = random_fq12_words(P3_LANES, 3, dev, rows=48)
+    clock = sm_clock_under_load(lambda: P.f12_mul(a, b))
+    log("pairing", f"SM clock under load {clock / 1e6:.0f} MHz; one dependent multiply through fp_mul_call "
+                   f"{mul_cycles:.1f} cycles, an empty launch {launch_ms:.5f} ms ({card})")
+    record = {}
+    coeffs = P._encode_prepared(pairs, dev)
+    for kname, kern, plain, want_out, reps in (
+            ("pair_miller_loop", lambda: P.miller_loop_coeffs(coeffs), lambda: P.miller_loop_plain(coeffs), ml, 10),
+            ("pair_final_exp", lambda: P.final_exp_device(ml), lambda: P.final_exp_plain(ml), fe, 5)):
+        want, plain_ms = timed(plain)
+        err = max_abs_err((want_out,), (want,))
+        if err:
+            raise AssertionError(f"{kname}: kernel differs from the plain version")
+        ms = cuda_ms(kern, reps=reps)
+        bound, by = P.bound_ms(kname, clock, n_pairs=len(pairs))
+        floor = P.floor_ms(kname, mul_cycles, clock, launch_ms, n_pairs=len(pairs))
+        shape = list(coeffs.shape) if kname == "pair_miller_loop" else [96]
+        record[kname] = dict(shape=shape, max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by,
+                             bound_share=bound / ms, floor_ms=floor, fq_muls=P.kernel_muls(kname, len(pairs)),
+                             host_s=t_host_ml if kname == "pair_miller_loop" else t_host_fe)
+        log("pairing", f"{kname} {tuple(shape)}: exact; kernel {ms:.4f} ms, critical-path floor {floor:.4f} ms "
+                       f"({record[kname]['fq_muls']} Fq multiplies x {mul_cycles:.1f} cycles + a launch), bound "
+                       f"{bound:.6f} ms ({by}), plain {plain_ms:.1f} ms, host {record[kname]['host_s'] * 1e3:.1f} ms "
+                       f"({card})")
+    ops = {}
+    for op in P.OPS:
+        second = {"mul": b, "mul_by_034": c}.get(op)
+        power = 3 if op == "frobenius" else 0
+        want, plain_ms = timed(lambda: P.map_plain(op, a, second, power))
+        got, _ = timed(lambda: P.f12_map(op, a, second, power))
+        err = max_abs_err((got,), (want,))
+        if err:
+            raise AssertionError(f"f12_map {op} at {P3_LANES} lanes: kernel differs from the plain version")
+        ms = cuda_ms(lambda: P.f12_map(op, a, second, power), reps=20)
+        bound, by = P.bound_ms("f12_map", clock, op=op, lanes=P3_LANES)
+        ops[op] = dict(shape=[96, P3_LANES], max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound,
+                       bound_by=by, bound_share=bound / ms)
+        log("pairing", f"f12_map {op} (96, {P3_LANES}){' power 3' if power else ''}: exact; kernel {ms:.4f} ms, "
+                       f"bound {bound:.4f} ms ({by}), share {bound / ms:.3f}, plain {plain_ms:.2f} ms ({card})")
+    record["f12_map"] = dict(ops["mul"], op="mul", other_ops={k: v for k, v in ops.items() if k != "mul"})
+    return launches, record
+
+
 def phase_groth16(dev, card: str, log2_m: int) -> tuple:
     import torch
 
@@ -709,7 +853,7 @@ def phase_groth16(dev, card: str, log2_m: int) -> tuple:
                    f"bytes decode (G2 subgroup check) and verify ({card})")
     log("groth16", f"launches: {json.dumps(launches)}")
     log("groth16", f"K2 and K4 launches by lane group g: {json.dumps(by_group)}")
-    return launches, by_group
+    return launches, by_group, (proof, cs.x[1:], verifier.vk)
 
 
 class StepSplit:
@@ -772,7 +916,7 @@ def phase_nova(dev, card: str) -> tuple:
 
     from kogarashi_tpu_torch import constants as C
     from kogarashi_tpu_torch.curves import GRUMPKIN
-    from kogarashi_tpu_torch.nova import ExampleFunction, Ivc, PublicParams
+    from kogarashi_tpu_torch.nova import ExampleFunction, Ivc, PublicParams, RelaxedR1csWitness
     from kogarashi_tpu_torch.ops import ec
     from kogarashi_tpu_torch.errors import MalformedProof
     from kogarashi_tpu_torch.pallet import NovaPallet, SamplePallet
@@ -834,6 +978,23 @@ def phase_nova(dev, card: str) -> tuple:
         pass
     else:
         raise AssertionError("Nova: the pallet took bytes with a flipped commitment byte")
+    # the port's stricter check: the same proof with an empty E is rejected
+    # (the JAX package's zip of E with the products would take it)
+    emptied = decode_recursive_proof(data)
+    emptied.w_range_primary = RelaxedR1csWitness(w=emptied.w_range_primary.w, e=[])
+    if NovaPallet().verify("mallory", encode_recursive_proof(emptied), pp):
+        raise AssertionError("Nova: the pallet took the proof re-encoded with w_range_primary.e = []")
+    # checkpoint and resume: the proof's bytes, decoded, carry the chain on,
+    # and its step 4 is the uninterrupted chain's
+    t0 = time.perf_counter()
+    resumed = Ivc.resume(pp, decode_recursive_proof(data)).prove_step()
+    t_resumed = time.perf_counter() - t0
+    step4 = ivc.prove_step()
+    digest4 = hashlib.sha256(encode_recursive_proof(step4)).hexdigest()
+    if hashlib.sha256(encode_recursive_proof(resumed)).hexdigest() != digest4 or resumed.i != 4:
+        raise AssertionError("Nova: the chain resumed from step 3's bytes gives another step 4")
+    log("nova", f"resume: Ivc.resume from the 3-step proof's decoded bytes, one prove_step ({t_resumed:.3f} s "
+                f"with the decode): step 4's sha256 {digest4} = the uninterrupted chain's ({card})")
     proof.zi_primary = [(proof.zi_primary[0] + 1) % C.R]
     if proof.verify(pp):
         raise AssertionError("Nova: a proof with a tampered z_i verified")
@@ -849,7 +1010,8 @@ def phase_nova(dev, card: str) -> tuple:
                 f"rejected, proof sha256 {digest} = the JAX package's ({card})")
     log("nova", f"pallet: the proof's {len(data)} bytes decode and NovaPallet.verify accepts them "
                 f"(ProofVerified) in {t_pallet:.3f} s; SamplePallet.set_thing_1 sets 7; a flipped "
-                f"commitment byte raises MalformedProof ({card})")
+                f"commitment byte raises MalformedProof; re-encoded with w_range_primary.e = [] it is "
+                f"rejected ({card})")
     log("nova", f"launches: {json.dumps({k: v for k, v in launches.items() if v})}")
     log("nova", f"K2 and K4 launches by lane group g: {json.dumps(by_group)}")
 
@@ -921,7 +1083,9 @@ def main() -> int:
     phase_curves(dev, card)
     ed_record = phase_edwards(dev, card)
     sig_launches = phase_signature(dev, card)
-    paths = {"groth16": phase_groth16(dev, card, LOG2_CONSTRAINTS), "nova": phase_nova(dev, card)}
+    g16_launches, g16_by_group, (proof, inputs, pvk) = phase_groth16(dev, card, LOG2_CONSTRAINTS)
+    pair_launches, pair_record = phase_pairing(dev, card, proof, inputs, pvk)
+    paths = {"groth16": (g16_launches, g16_by_group), "nova": phase_nova(dev, card)}
 
     kernels = []
     for key, rec in record.items():
@@ -938,6 +1102,10 @@ def main() -> int:
         kernels.append(dict(name=key, route="cuda", source=ED_SOURCE, replaces=ED_REPLACES[key.rsplit("_", 1)[0]],
                             launches=sig_launches[key], path="signature",
                             launches_by_path={"signature": sig_launches[key]}, **rec))
+    for key, rec in pair_record.items():
+        kernels.append(dict(name=key, route="cuda", source=PAIR_SOURCE, replaces=PAIR_REPLACES[key],
+                            launches=pair_launches[key], path="groth16_verify",
+                            launches_by_path={"groth16_verify": pair_launches[key]}, library_ms=None, **rec))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -15,6 +15,7 @@ Parity (reference = KogarashiNetwork/Kogarashi, Rust):
   - BigNat limbs: nova/src/gadget/big_nat.rs:8-9
   - BLS12-381 Fr and Jubjub (d, order, cofactor, generator):
     zkstd/tests/jubjub.rs
+  - BLS12-381 Fq: zkstd/src/arithmetic/limbs/bits_384
 """
 
 # Base field of BN254 G1
@@ -123,3 +124,9 @@ JUBJUB_GEN = (
 )
 _jx, _jy = JUBJUB_GEN
 assert (-_jx * _jx + _jy * _jy - 1 - JUBJUB_D * _jx * _jx % BLS_FR * _jy * _jy) % BLS_FR == 0
+
+# BLS12-381 base field (384-bit width; zkstd/src/arithmetic/limbs/bits_384 and
+# the bls12_381_field fixture in zkstd/tests/jubjub.rs): the plain field
+# engine at 12 words (fields/spec.py `BLS_FQ`)
+BLS_FQ = 0x1A0111EA397FE69A4B1BA7B6434BACD764774B84F38512BF6730D2A0F6B0F6241EABFFFEB153FFFFB9FEFFFFFFFFAAAB
+assert BLS_FQ.bit_length() == 381

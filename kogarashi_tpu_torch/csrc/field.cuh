@@ -418,6 +418,31 @@ __device__ __noinline__ Elem<8> fp_mul_call(Elem<8> a, Elem<8> b) {
   return r;
 }
 
+// Fermat inverse a^(p - 2), square-and-multiply from the top bit, on
+// fp_mul_call; 0 maps to 0, as `fields/mont.py::Fp.inv` and
+// kogarashi_tpu/fields/mont.py:209 do. The exponent's bits are constants, so
+// the branch is the same for every lane. Canonical in, canonical out.
+template <class F>
+__device__ __noinline__ Elem<8> fp_inv(Elem<8> a) {
+  u32 e[8];
+  u32 borrow = 2;
+#pragma unroll
+  for (int j = 0; j < 8; j++) {  // e = p - 2
+    const u32 pj = F::p(j);
+    e[j] = pj - borrow;
+    borrow = pj < borrow ? 1u : 0u;
+  }
+  Elem<8> r;
+#pragma unroll
+  for (int j = 0; j < 8; j++) r.v[j] = F::one(j);
+#pragma unroll 1
+  for (int bit = 255; bit >= 0; bit--) {
+    r = fp_mul_call<F>(r, r);
+    if ((e[bit >> 5] >> (bit & 31)) & 1u) r = fp_mul_call<F>(r, a);
+  }
+  return r;
+}
+
 // Fq2 = Fq[u]/(u^2 + 1): Karatsuba multiply (3 base multiplies).
 template <class F>
 struct Alg2 {

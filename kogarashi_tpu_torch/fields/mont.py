@@ -1,9 +1,11 @@
 """Plain-PyTorch Montgomery arithmetic over the port's word layout.
 
-Public functions take and return int32 word tensors shaped (8 * ext, ...)
-(see `spec`). Internally the math runs on 16-bit halves held in int64,
-shaped (16 * ext, ...), because torch's uint32 supports few ops: a 16x16-bit
-product is exact in int64 and lazy row sums stay far below 2^63.
+Public functions take and return int32 word tensors shaped (W * ext, ...),
+W = the spec's `n_words` (8; 12 for BLS12-381's base field), see `spec`.
+Internally the math runs on 16-bit halves held in int64, shaped
+(2W * ext, ...), because torch's uint32 supports few ops: a 16x16-bit
+product is exact in int64 and lazy row sums stay far below 2^63. The
+descriptions below give the 8-word sizes.
 
 Every op returns a canonical value in [0, p):
   * `mul` is CIOS over 16 halves (products accumulated unsplit in int64
@@ -12,7 +14,8 @@ Every op returns a canonical value in [0, p):
   * `add`/`sub`/`neg` form a + b, a - b + p or p - a (all in [0, 2p)) and
     apply the same single correction, so `neg(0) == 0`.
 The correction's 8-word carry chain needs only 2p < 2^256: every field here
-has p < 2^255 (BN254's Fq and Fr below 2^254, BLS12-381's Fr below 2^255).
+has p < 2^255 (BN254's Fq and Fr below 2^254, BLS12-381's Fr below 2^255);
+at 12 words, 2p < 2^384 (BLS12-381's Fq, 381 bits).
 
 This module is the plain version of `csrc/field.cuh` and the counterpart of
 `kogarashi_tpu/fields/mont.py` and of the plain path of
@@ -51,13 +54,13 @@ def to_words(h: torch.Tensor) -> torch.Tensor:
     return (u - ((u >> 31) << 32)).to(torch.int32)
 
 
-def const_col(v: int, device, ndim: int) -> torch.Tensor:
-    """Int < 2^256 -> (16, 1, ..., 1) int64 halves column on `device`."""
-    key = (v, str(device), ndim)
+def const_col(v: int, device, ndim: int, n: int = 16) -> torch.Tensor:
+    """Int < 2^(16 n) -> (n, 1, ..., 1) int64 halves column on `device`."""
+    key = (v, str(device), ndim, n)
     t = _CONST_CACHE.get(key)
     if t is None:
-        t = torch.tensor([(v >> (16 * i)) & MASK for i in range(16)], dtype=I64, device=device)
-        t = t.reshape((16,) + (1,) * ndim)
+        t = torch.tensor([(v >> (16 * i)) & MASK for i in range(n)], dtype=I64, device=device)
+        t = t.reshape((n,) + (1,) * ndim)
         _CONST_CACHE[key] = t
     return t
 
@@ -74,9 +77,14 @@ class Fp:
         self.spec = spec
         self.p = spec.p
         self.inv16 = spec.inv16
+        self.nw = spec.n_words
+        self.nh = 2 * spec.n_words  # 16-bit halves per element
+
+    def _col(self, v: int, device, ndim: int):
+        return const_col(v, device, ndim, self.nh)
 
     def _p(self, like, ndim):
-        return const_col(self.p, like.device, ndim)
+        return self._col(self.p, like.device, ndim)
 
     def finalize(self, t):
         """Lazy rows (16, ...), |row| < 2^46, value in [0, 2p) -> canonical.
@@ -87,7 +95,7 @@ class Fp:
         u = t[0::2] + t[1::2] * 65536
         c1 = c2 = 0
         lims, diffs = [], []
-        for j in range(8):
+        for j in range(self.nw):
             v = u[j] + c1
             lim = v & 0xFFFFFFFF
             c1 = v >> 32
@@ -104,16 +112,17 @@ class Fp:
         if a.shape[1:] != shape:
             shape = torch.broadcast_shapes(a.shape[1:], shape)
         nd = len(shape)
-        b = b.expand(16, *shape)
+        nh = self.nh
+        b = b.expand(nh, *shape)
         p = self._p(b, nd)
-        t = torch.zeros((33, *shape), dtype=I64, device=b.device)
+        t = torch.zeros((2 * nh + 1, *shape), dtype=I64, device=b.device)
         inv = self.inv16
-        for i in range(16):
-            t[i : i + 16] += a[i] * b
+        for i in range(nh):
+            t[i : i + nh] += a[i] * b
             m = ((t[i] & MASK) * inv) & MASK
-            t[i : i + 16] += m * p
+            t[i : i + nh] += m * p
             t[i + 1] += t[i] >> 16
-        return self.finalize(t[16:32])
+        return self.finalize(t[nh : 2 * nh])
 
     def sqr(self, a):
         return self.mul(a, a)
@@ -138,14 +147,14 @@ class Fp:
         return self.finalize(self._p(a, a.ndim - 1) - a)
 
     def zero(self, shape, device):
-        return torch.zeros((16, *shape), dtype=I64, device=device)
+        return torch.zeros((self.nh, *shape), dtype=I64, device=device)
 
     def one(self, shape, device):
-        return const_col(self.spec.r1, device, len(shape)).expand(16, *shape).clone()
+        return self._col(self.spec.r1, device, len(shape)).expand(self.nh, *shape).clone()
 
     def const(self, v: int, shape, device):
         """Standard-form int -> Montgomery halves broadcast to `shape`."""
-        return const_col(self.spec.to_mont(v), device, len(shape)).expand(16, *shape)
+        return self._col(self.spec.to_mont(v), device, len(shape)).expand(self.nh, *shape)
 
     def is_zero(self, a):
         return (a == 0).all(dim=0)
@@ -164,10 +173,10 @@ class Fp:
         return self.pow(a, self.p - 2)
 
     def to_std(self, a):
-        return self.mul(a, const_col(1, a.device, a.ndim - 1))
+        return self.mul(a, self._col(1, a.device, a.ndim - 1))
 
     def from_std(self, a):
-        return self.mul(a, const_col(self.spec.r2, a.device, a.ndim - 1))
+        return self.mul(a, self._col(self.spec.r2, a.device, a.ndim - 1))
 
     def reduce_wide(self, t):
         """Lazy nonnegative rows (16, ...) of any size below 2^62 each ->
@@ -175,16 +184,16 @@ class Fp:
         V*R = mont(lo, R^2) + mont(hi, R^3); V = mont(V*R, 1)."""
         c = torch.zeros_like(t[0])
         lo = []
-        for k in range(16):
+        for k in range(self.nh):
             v = t[k] + c
             lo.append(v & MASK)
             c = v >> 16
         lo = torch.stack(lo)
-        hi = torch.stack([(c >> (16 * k)) & MASK for k in range(16)])
+        hi = torch.stack([(c >> (16 * k)) & MASK for k in range(self.nh)])
         nd = t.ndim - 1
         vr = self.add(
-            self.mul(lo, const_col(self.spec.r2, t.device, nd)),
-            self.mul(hi, const_col(self.spec.r3, t.device, nd)),
+            self.mul(lo, self._col(self.spec.r2, t.device, nd)),
+            self.mul(hi, self._col(self.spec.r3, t.device, nd)),
         )
         return self.to_std(vr)
 

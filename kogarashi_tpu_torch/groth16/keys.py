@@ -5,7 +5,8 @@ imported without JAX (its package `__init__` imports the JAX prover). The
 verifying-key points are host pyref points; query vectors are affine word
 batches (x, y, inf) on the prover's device, the MSM's input format.
 Verification is the same three-pair check, on the port's copy of
-`pyref.pairing_fast`.
+`pyref.pairing_fast`; `Proof.pairs` gives the pairs to `ops.pairing`, which
+evaluates them on the card.
 """
 
 from __future__ import annotations
@@ -67,19 +68,24 @@ class Proof:
     b: AffinePoint  # G2
     c: AffinePoint
 
-    def verify(self, pvk: PreparedVerifyingKey, public_inputs: list[int]) -> bool:
-        """e(A,B) e(acc,-gamma) e(C,-delta) == e(alpha,beta) (proof.rs:14-50)."""
+    def pairs(self, pvk: PreparedVerifyingKey, public_inputs: list[int]) -> list:
+        """The verify equation's three (G1, G2Prepared) pairs: (A, B),
+        (acc, -gamma), (C, -delta), acc = ic_0 + sum x_i ic_i."""
         if len(public_inputs) + 1 != len(pvk.ic):
             raise InconsistentPublicInputsLen(len(pvk.ic) - 1, len(public_inputs))
         acc = pvk.ic[0]
         for x, b in zip(public_inputs, pvk.ic[1:]):
             acc = acc + x * b
-        lhs = multi_miller_loop([
+        return [
             (self.a, G2Prepared.from_affine(self.b)),
             (acc, pvk.neg_gamma_g2),
             (self.c, pvk.neg_delta_g2),
-        ])
-        return final_exp_fast(lhs) == pvk.alpha_g1_beta_g2
+        ]
+
+    def verify(self, pvk: PreparedVerifyingKey, public_inputs: list[int]) -> bool:
+        """e(A,B) e(acc,-gamma) e(C,-delta) == e(alpha,beta) (proof.rs:14-50),
+        on the host. `ops.pairing` evaluates the same pairs on the card."""
+        return final_exp_fast(multi_miller_loop(self.pairs(pvk, public_inputs))) == pvk.alpha_g1_beta_g2
 
 
 class Verifier:

@@ -12,7 +12,7 @@ Two source layouts exist in `kogarashi_tpu`:
 port's, so both provers can run on the same keys; `public_params_from_jax`
 and `recursive_proof_from_jax` do the same for Nova's public parameters and
 recursive proofs, so both packages can fold with the same keys;
-`edwards_from_jax` carries Jubjub points. This module
+`edwards_from_jax` carries Jubjub points and `fq12_from_jax` Fq12s. This module
 takes numpy arrays, points by their integer coordinates, R1CS rows by their
 (wire, coefficient) terms and drivers by name; it imports nothing of the JAX
 package. Points are rebuilt as the port's own pyref points, so the port's
@@ -59,6 +59,19 @@ def edwards_from_jax(p, device=None):
     return tuple(
         torch.from_numpy(np.ascontiguousarray(words_from_limbs16(np.asarray(c).reshape(16, -1)))).to(device)
         for c in p)
+
+
+def fq12_from_jax(a, device=None):
+    """A JAX device Fq12 (`kogarashi_tpu/ops/pairing.py`), shape
+    (2, 3, 2, 16, *batch) of 16-bit Montgomery limbs (R = 2^256) -> the
+    port's (96, *batch) int32 words (`ops/pairing.py`: 12 Fq components in
+    `Fq12.to_fq_list` order, 8 words each), on `device` (None: the card)."""
+    device = resolve(device)
+    a = np.asarray(a)
+    if a.shape[:4] != (2, 3, 2, 16):
+        raise ValueError(f"expected (2, 3, 2, 16, ...) limbs, got {a.shape}")
+    w = np.moveaxis(words_from_limbs16(np.moveaxis(a, 3, 0)), 0, 3)  # (2, 3, 2, 8, *batch)
+    return torch.from_numpy(np.ascontiguousarray(w.reshape(96, *a.shape[4:]))).to(device)
 
 
 def words_from_limbs13(a) -> np.ndarray:

@@ -127,6 +127,33 @@ class Ivc:
             pp.shape_secondary.m_l_1(), pp.shape_secondary.m
         )
 
+    @classmethod
+    def resume(cls, pp: PublicParams, proof: RecursiveProof) -> "Ivc":
+        """Checkpoint/resume: rebuild the chain state from a proof.
+
+        A RecursiveProof carries (i, z0, z_i, running + single
+        instances/witnesses), the reference's resumable Ivc tuple
+        (nova/src/ivc.rs:15-42, SURVEY §5); with `utils.serde` a chain can
+        go on from any serialized step. The next `prove_step` commits on
+        `pp`'s device.
+        """
+        ivc = cls.__new__(cls)
+        ivc.pp = pp
+        ivc.i = proof.i
+        ivc.z0_primary = list(proof.z0_primary)
+        ivc.z0_secondary = list(proof.z0_secondary)
+        ivc.zi_primary = list(proof.zi_primary)
+        ivc.zi_secondary = list(proof.zi_secondary)
+        ivc.prover_primary = NifsProver(pp.shape_primary, pp.ck_primary)
+        ivc.prover_secondary = NifsProver(pp.shape_secondary, pp.ck_secondary)
+        ivc.u_single_secondary = proof.u_single_secondary
+        ivc.w_single_secondary = proof.w_single_secondary
+        ivc.u_range_primary = proof.u_range_primary
+        ivc.w_range_primary = proof.w_range_primary
+        ivc.u_range_secondary = proof.u_range_secondary
+        ivc.w_range_secondary = proof.w_range_secondary
+        return ivc
+
     def _proof(self) -> RecursiveProof:
         return RecursiveProof(
             i=self.i,

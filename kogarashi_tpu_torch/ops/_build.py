@@ -39,6 +39,11 @@ _ED_SIGNATURES = {  # csrc/edwards.cu, per Edwards curve
     "kt_ed_map_add_{c}": [P] * 12 + [I, I, P],
     "kt_ed_map_double_{c}": [P] * 8 + [I, I, P],
 }
+_PAIR_SIGNATURES = {  # csrc/pairing.cu
+    "kt_pair_miller_loop": [P, P, I, I, P, P],
+    "kt_pair_final_exp": [P, P, P, I, P, P],
+    "kt_f12_map": [I, P, P, P, I, P, I, P],
+}
 _FIELD_SIGNATURE = [P, P, P, I, I, P]
 _PROBE_SIGNATURES = {"kt_imad_probe_info": [I, P], "kt_imad_probe": [I, I, I, P, P, P],
                      "kt_mul_latency": [I, I, P, P, P], "kt_empty": [P],
@@ -155,6 +160,7 @@ def _demangle(name: str) -> str:
     for kern in ("scan_mixed_kernel", "scan_proj_group_kernel", "scan_proj_kernel",
                  "pdouble_group_kernel", "padd_kernel", "pdouble_kernel", "field_op_kernel",
                  "ed_scalar_mul_kernel", "ed_map_add_kernel", "ed_map_double_kernel",
+                 "pair_miller_loop_kernel", "pair_final_exp_kernel", "f12_map_kernel",
                  "fp_mul_call", "imad_wide_probe_kernel", "imad_probe_kernel",
                  "mul_latency_kernel", "empty_kernel", "spin_kernel"):
         if kern in name:
@@ -179,6 +185,10 @@ def lib() -> ctypes.CDLL:
                 fn.restype = ctypes.c_int
         for fmt, args in _ED_SIGNATURES.items():
             fn = getattr(handle, fmt.format(c="jubjub"))
+            fn.argtypes = args
+            fn.restype = ctypes.c_int
+        for fname, args in _PAIR_SIGNATURES.items():
+            fn = getattr(handle, fname)
             fn.argtypes = args
             fn.restype = ctypes.c_int
         for fld in ("fq", "fr", "blsfr"):

@@ -1,7 +1,8 @@
 """Pure-Python bigint oracle: BN254 fields, the Fq2/Fq6/Fq12 tower, G1, G2
-and Grumpkin, Jubjub over BLS12-381's scalar field, the coefficient-based
-pairing the verifier runs, Nova's MiMC transcript, and (in `subgroup`, not
-exported here) the torsion checks the proof decoders run.
+and Grumpkin, Jubjub over BLS12-381's scalar field, the transparent affine
+pairing (`pairing`) and the coefficient-based one the verifier runs
+(`pairing_fast`), the target group (`gt.Gt`), Nova's MiMC transcript, and
+(in `subgroup`, not exported here) the torsion checks the proof decoders run.
 
 The port's own copy of the parts of `kogarashi_tpu/pyref` it uses. Slow,
 obvious Python, used as a test oracle and for O(1) host-side glue (verifying
@@ -19,6 +20,7 @@ from .curve import (
     ProjectivePoint,
     batch_to_affine,
 )
+from .pairing import pairing, miller_loop, final_exp, untwist
 from .edwards import BlsScalar, EdwardsAffine, EdwardsExtended, EdwardsSpec, JUBJUB_SPEC
 from .mimc import Mimc, MimcRO, mimc_constants
 
@@ -36,6 +38,10 @@ __all__ = [
     "G2_SPEC",
     "GRUMPKIN_SPEC",
     "batch_to_affine",
+    "pairing",
+    "miller_loop",
+    "final_exp",
+    "untwist",
     "BlsScalar",
     "EdwardsAffine",
     "EdwardsExtended",

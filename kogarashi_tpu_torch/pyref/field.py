@@ -1,6 +1,6 @@
 """Pure-Python (bigint) prime-field reference.
 
-The port's own copy of `kogarashi_tpu/pyref/field.py` (Fr and Fq). Its
+The port's own copy of `kogarashi_tpu/pyref/field.py` (Fr, Fq and BlsFq). Its
 classes are not the JAX package's: an element of one never equals an element
 of the other, so tests that hold the two packages side by side compare ints.
 
@@ -162,3 +162,16 @@ class Fq(PrimeField):
     s = C.FQ_S
     t = C.FQ_T
     root_of_unity = C.FQ_ROOT_OF_UNITY
+
+
+class BlsFq(PrimeField):
+    """BLS12-381 base field, the 384-bit width fixture
+    (zkstd/src/arithmetic/limbs/bits_384, zkstd/tests/jubjub.rs
+    bls12_381_field). q = 3 mod 4: S = 1, generator 2, root of unity -1."""
+
+    p = C.BLS_FQ
+    generator = 2
+    s = 1
+    t = (C.BLS_FQ - 1) // 2
+    root_of_unity = C.BLS_FQ - 1
+    n_bytes = 48

@@ -273,3 +273,49 @@ def test_generic_scalar_mul_on_card(dev):
         out = point.scalar_mul(curve, p, torch.from_numpy(ints_to_limbs16(ks)).to(dev))
         assert decode_points(curve, out) == [k * q for k, q in zip(ks, pts)]
         assert point.on_curve(curve, out).all()
+
+
+@pytest.mark.parametrize("op", ["mul", "sq", "inv", "frobenius", "conj", "mul_by_034"])
+def test_f12_map_matches_plain(dev, op):
+    """P3 on 1, 129 and 4096 lanes (a ragged last block among them), zero
+    lanes and edge words among the inputs, against its plain version on
+    the card; frobenius at every power. Each launch is counted."""
+    from kogarashi_tpu_torch.ops import pairing as P
+
+    rng = np.random.default_rng(5)
+    for n in (1, 129, 4096):
+        vals = [int(v) % FQ.p for v in rng.integers(0, 1 << 62, 12 * n)]
+        edges = [0] * 12 + [FQ.p - 1] * 12  # a zero lane, then a lane of p - 1
+        vals[: min(24, 12 * n)] = edges[: 12 * n]
+        a = torch.from_numpy(FQ.encode(vals)).reshape(8, n, 12).permute(2, 0, 1).reshape(96, n).contiguous().to(dev)
+        b = a.roll(1, dims=1).contiguous()
+        second = {"mul": b, "mul_by_034": b[:48].contiguous()}.get(op)
+        for power in (range(12) if op == "frobenius" else (0,)):
+            before = P.LAUNCHES["f12_map"]
+            got = P.f12_map(op, a, second, power)
+            torch.cuda.synchronize()
+            assert P.LAUNCHES["f12_map"] == before + 1
+            assert torch.equal(got, P.map_plain(op, a, second, power)), (op, n, power)
+
+
+def test_miller_loop_and_final_exp_match_plain(dev):
+    """P1 on one pair and on three (identity pairs skipped), P2 on their
+    results: equal to their plain versions on the card and to the host's
+    multi_miller_loop and final_exp_fast; pairing_device(a G1, G2) equals
+    pairing_fast."""
+    from kogarashi_tpu_torch import pyref
+    from kogarashi_tpu_torch.ops import pairing as P
+    from kogarashi_tpu_torch.pyref.pairing_fast import G2Prepared, final_exp_fast, multi_miller_loop, pairing_fast
+
+    g1, g2 = pyref.G1_SPEC.generator, pyref.G2_SPEC.generator
+    inf = pyref.G1_SPEC.identity_affine()
+    for ks in ([(5, 7)], [(11, 13), (17, 19), (23, 29)]):
+        pairs = [(a * g1, G2Prepared.from_affine(b * g2)) for a, b in ks] + [(inf, G2Prepared.from_affine(g2))]
+        ml = P.multi_miller_loop_device(pairs, dev)
+        assert torch.equal(ml, P.miller_loop_plain(P._encode_prepared(pairs[:-1], dev)))
+        assert P.decode_fq12(ml) == multi_miller_loop(pairs)
+        fe = P.final_exp_device(ml)
+        assert torch.equal(fe, P.final_exp_plain(ml))
+        assert P.decode_fq12(fe) == final_exp_fast(multi_miller_loop(pairs))
+    a = random.Random(3).randrange(1, FR.p)
+    assert P.decode_fq12(P.pairing_device(a * g1, g2, dev)) == pairing_fast(a * g1, g2)

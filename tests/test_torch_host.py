@@ -1,5 +1,6 @@
-"""The port's own host modules (constants, pyref, r1cs, interop, XorShift,
-MiMC, serde) against the JAX package's, on the CPU, and the rule that the
+"""The port's own host modules (constants, pyref with its pairing and Gt,
+r1cs, interop, XorShift, MiMC, serde, poly, ff_compat, BLS12-381's Fq at 12
+words) against the JAX package's, on the CPU, and the rule that the
 port's entry points run on the card unless a caller asks for the CPU. Points cross between the two
 packages by their integer coordinates: their pyref classes never compare
 equal."""
@@ -20,7 +21,7 @@ from kogarashi_tpu_torch.curves import G1, G2, edwards, encode_projective, point
 from kogarashi_tpu_torch.fields.spec import FQ, FR
 from kogarashi_tpu_torch.groth16 import SquareChainCircuit, setup
 from kogarashi_tpu_torch.nova import ExampleFunction, PedersenCommitment, PublicParams, R1csShape
-from kogarashi_tpu_torch.ops import ntt, spmv
+from kogarashi_tpu_torch.ops import ntt, pairing, spmv
 from kogarashi_tpu_torch.ops.fixed_base import FixedBaseTable
 from kogarashi_tpu_torch.pyref import pairing_fast
 from kogarashi_tpu_torch.signature import batch_verify
@@ -32,7 +33,7 @@ CONSTANTS = ["Q", "R", "BN_X", "SIX_X_PLUS_2", "FR_S", "FR_T", "FQ_S", "FQ_T", "
              "G2_GEN_X", "G2_GEN_Y", "FQ2_XI", "G2_B", "GRUMPKIN_B", "GRUMPKIN_GEN", "MIMC_ROUNDS",
              "CHALLENGE_BITS", "HASH_BITS", "BN_LIMB_WIDTH", "BN_N_LIMBS", "BLS_FR",
              "BLS_FR_GENERATOR", "BLS_FR_S", "BLS_FR_T", "BLS_FR_ROOT_OF_UNITY", "JUBJUB_ORDER",
-             "JUBJUB_COFACTOR", "JUBJUB_D", "JUBJUB_GEN"]
+             "JUBJUB_COFACTOR", "JUBJUB_D", "JUBJUB_GEN", "BLS_FQ"]
 
 
 def test_constants_match_jax():
@@ -228,6 +229,160 @@ def test_serde_codec_bytes_match_jax():
     assert a.bytes() == b.bytes()
 
 
+def _ints(x):
+    """A pyref value of either package (field element, Fq12, Gt, point) -> ints."""
+    if hasattr(x, "f"):
+        x = x.f
+    if hasattr(x, "to_fq_list"):
+        return [v.v for v in x.to_fq_list()]
+    if hasattr(x, "is_infinity"):
+        return ("inf",) if x.is_infinity else (_ints(x.x), _ints(x.y))
+    if hasattr(x, "c1"):
+        return (x.c0.v, x.c1.v)
+    return x.v
+
+
+def test_pyref_pairing_and_gt_match_jax():
+    """The port's copies of pyref/pairing.py (untwist, the affine Miller
+    loop, the brute-force final exponentiation) and pyref/gt.py give the JAX
+    package's values; e(aP, Q) = [a] e(P, Q) in both."""
+    from kogarashi_tpu.pyref import gt as jgt
+    from kogarashi_tpu_torch.pyref import gt
+
+    g1, g2 = 3 * pyref.G1_SPEC.generator, 5 * pyref.G2_SPEC.generator
+    jg1, jg2 = 3 * jpyref.G1_SPEC.generator, 5 * jpyref.G2_SPEC.generator
+    assert [_ints(c) for c in pyref.untwist(g2)] == [_ints(c) for c in jpyref.untwist(jg2)]
+    ml, jml = pyref.miller_loop(g1, g2), jpyref.miller_loop(jg1, jg2)
+    assert _ints(ml) == _ints(jml)
+    e = pyref.final_exp(ml)
+    assert _ints(e) == _ints(jpyref.final_exp(jml)) == _ints(pairing_fast.pairing_fast(g1, g2))
+    assert pyref.pairing(pyref.G1_SPEC.identity_affine(), g2) == pyref.Fq12.one()
+    gen, jgen = gt.Gt.generator(), jgt.Gt.generator()
+    assert _ints(gen) == _ints(jgen)
+    k = random.Random(2).randrange(C.R)
+    for ours, theirs in ((gen * k, jgen * k), (gen + gen.double(), jgen + jgen.double()), (-gen, -jgen),
+                         (gen - gen, jgen - jgen)):
+        assert _ints(ours) == _ints(theirs)
+    assert (gen - gen).is_identity() and gt.Gt.identity().is_identity() and not gen.is_identity()
+    assert gt.Gt(e) == gen * 15
+
+
+POLY_CASES = {
+    "evaluate": lambda m, f, at: f(m).evaluate(at),
+    "divide": lambda m, f, at: f(m).divide(at).c,
+    "t": lambda m, f, at: m.Coefficients.t(16, at),
+    "commit": lambda m, f, at: f(m).commit([at * at] * 3 + f(m).c),
+    "blind": lambda m, f, at: m.Coefficients(list(f(m).c)).blind(1, random.Random(1), type(at)).c,
+    "ops": lambda m, f, at: [(f(m) + f(m)).c, (f(m) - m.Coefficients([at])).c, (f(m) * f(m)).c,
+                                  (f(m) * at).c, f(m).format_degree().c, f(m).degree()],
+    "points_value": lambda m, f, at: [
+        (m.PointsValue(f(m).c) + m.PointsValue(f(m).c)).v, (m.PointsValue(f(m).c) * m.PointsValue(f(m).c)).v,
+        (m.PointsValue(f(m).c) - m.PointsValue([at] * 5)).v],
+}
+
+
+@pytest.mark.parametrize("case", list(POLY_CASES))
+def test_poly_matches_jax(case):
+    """The port's copy of groth16/poly.py gives the JAX package's values on
+    the cases of tests/test_poly_errors.py, over each package's Fr."""
+    from kogarashi_tpu.groth16 import poly as jpoly
+    from kogarashi_tpu_torch.groth16 import poly
+
+    vals = [random.Random(8).randrange(C.R) for _ in range(5)] + [0]
+    at = random.Random(9).randrange(C.R)
+    out = []
+    for mod, Fr in ((poly, pyref.Fr), (jpoly, jpyref.Fr)):
+        def f(m, Fr=Fr):
+            return m.Coefficients([Fr(v) for v in vals])
+
+        res = POLY_CASES[case](mod, f, Fr(at))
+        out.append(repr(res).replace("Fr(", "("))
+    assert out[0] == out[1]
+    if case == "evaluate":
+        assert poly.Coefficients([pyref.Fr(v) for v in vals]).evaluate(pyref.Fr(at)).v == sum(
+            v * pow(at, i, C.R) for i, v in enumerate(vals)) % C.R
+
+
+def test_ff_compat_matches_jax():
+    """The port's copy of utils/ff_compat.py: the same field parameters,
+    reprs and 97-byte raw points as the JAX package's, and the same
+    rejections (truncated, off-curve, non-canonical raw points raise the
+    port's MalformedProof; from_slice_unchecked validates nothing)."""
+    from kogarashi_tpu.utils import ff_compat as jff
+    from kogarashi_tpu_torch.errors import MalformedProof
+    from kogarashi_tpu_torch.utils import ff_compat as ff
+
+    for name in ("FR_PARAMS", "FQ_PARAMS"):
+        assert vars(getattr(ff, name)) == vars(getattr(jff, name)), name
+    assert ff.RAW_SIZE == jff.RAW_SIZE == 97
+    rng = random.Random(10)
+    for field, jfield in ((pyref.Fr, jpyref.Fr), (pyref.Fq, jpyref.Fq)):
+        v = rng.randrange(field.p)
+        assert ff.to_repr(field(v)) == jff.to_repr(jfield(v))
+        assert ff.from_repr(ff.to_repr(field(v)), field) == field(v)
+        assert ff.from_repr(field.p.to_bytes(32, "little"), field) is None
+        assert ff.is_odd(field(v)) == jff.is_odd(jfield(v))
+    for spec, jspec in ((pyref.G1_SPEC, jpyref.G1_SPEC), (pyref.GRUMPKIN_SPEC, jpyref.GRUMPKIN_SPEC)):
+        for k in (1, 12345, rng.randrange(1, 1 << 64)):
+            raw = ff.to_raw_bytes(k * spec.generator)
+            assert raw == jff.to_raw_bytes(k * jspec.generator)
+            assert ff.from_raw_bytes(raw, spec) == ff.from_slice_unchecked(raw, spec) == k * spec.generator
+        assert ff.from_raw_bytes(ff.to_raw_bytes(spec.identity_affine()), spec).is_infinity
+    raw = ff.to_raw_bytes(pyref.G1_SPEC.generator)
+    bad, noncanon = bytearray(raw), bytearray(raw)
+    bad[0] ^= 1
+    noncanon[0:32] = pyref.G1_SPEC.field.p.to_bytes(32, "little")
+    for data in (raw[:-1], bytes(bad), bytes(noncanon)):
+        with pytest.raises(MalformedProof):
+            ff.from_raw_bytes(data, pyref.G1_SPEC)
+    ff.from_slice_unchecked(bytes(bad), pyref.G1_SPEC)
+
+
+@pytest.mark.parametrize("name", ["BlsFr", "BlsFq"])
+def test_wide_field_laws(name):
+    """tests/test_fields_wide.py's cases on the port's plain engine, at 8
+    words (BLS12-381's Fr) and 12 (its Fq, R = 2^384, the JAX package's
+    24-limb width): add/sub/mul/sqr/neg laws, the Fermat inverse (0 -> 0),
+    reduce_wide of lazy sums, and the pyref classes' 32- and 48-byte serde;
+    the spec's Montgomery constants are the JAX package's."""
+    from kogarashi_tpu.fields import spec as jspec
+    from kogarashi_tpu.pyref.field import BlsFq as JBlsFq
+    from kogarashi_tpu_torch.fields import mont
+    from kogarashi_tpu_torch.fields.spec import BLS_FQ, BLS_FR
+    from kogarashi_tpu_torch.pyref.edwards import BlsScalar
+    from kogarashi_tpu_torch.pyref.field import BlsFq
+
+    spec, js, F = {"BlsFr": (BLS_FR, jspec.BLS_FR, BlsScalar), "BlsFq": (BLS_FQ, jspec.BLS_FQ, BlsFq)}[name]
+    assert spec.n_words * 2 == js.n_limbs and (spec.r1, spec.r2, spec.r3) == (js.r1, js.r2, js.r3)
+    assert (spec.p, spec.generator, spec.s, spec.root_of_unity) == (js.p, js.generator, js.s, js.root_of_unity)
+    p, rng = spec.p, random.Random(11)
+    xs, ys = [rng.randrange(p) for _ in range(8)], [rng.randrange(p) for _ in range(8)]
+    a, b = torch.from_numpy(spec.encode(xs)), torch.from_numpy(spec.encode(ys))
+    assert a.shape == (spec.n_words, 8)
+
+    def dec(t):
+        return spec.decode(t.numpy())
+
+    assert dec(mont.sub(mont.add(a, b, spec=spec), b, spec=spec)) == xs
+    assert dec(mont.sub(a, a, spec=spec)) == [0] * 8
+    assert dec(mont.mul(a, b, spec=spec)) == dec(mont.mul(b, a, spec=spec)) == [x * y % p for x, y in zip(xs, ys)]
+    assert dec(mont.sqr(a, spec=spec)) == [x * x % p for x in xs]
+    assert dec(mont.add(a, mont.neg(a, spec=spec), spec=spec)) == [0] * 8
+    zero = torch.from_numpy(spec.encode([0] * 8))
+    assert dec(mont.neg(zero, spec=spec)) == [0] * 8
+    inv = dec(mont.inv(a[:, :4], spec=spec))
+    assert all(i * x % p == 1 for i, x in zip(inv, xs[:4])) and dec(mont.inv(zero[:, :1], spec=spec)) == [0]
+    h = mont.to_halves(a)
+    assert spec.decode(mont.to_words(mont.field(spec).reduce_wide(h + h + h)).numpy()) == [3 * x % p for x in xs]
+    assert F.p == p and F.n_bytes == 4 * spec.n_words
+    x = F.random(rng)
+    assert F.from_bytes(x.to_bytes()) == x and F.from_bytes((p + 1).to_bytes(F.n_bytes, "little")) is None
+    wide = rng.randrange(1 << (16 * F.n_bytes - 5)).to_bytes(2 * F.n_bytes, "little")
+    assert F.from_bytes_wide(wide).v == int.from_bytes(wide, "little") % p
+    if name == "BlsFq":
+        assert (JBlsFq.p, JBlsFq.s, JBlsFq.t, JBlsFq.n_bytes) == (F.p, F.s, F.t, F.n_bytes)
+
+
 ENTRY_POINTS = {
     "setup": lambda: setup(SquareChainCircuit(4), random.Random(1)),
     "params_from_jax": lambda: interop.params_from_jax(None),
@@ -251,6 +406,10 @@ ENTRY_POINTS = {
     "edwards.generator": lambda: edwards.generator(edwards.JUBJUB),
     "JUBJUB.encode_points": lambda: edwards.JUBJUB.encode_points([pyref.JUBJUB_SPEC.generator]),
     "batch_verify": lambda: batch_verify([], [], []),
+    "multi_miller_loop_device": lambda: pairing.multi_miller_loop_device([]),
+    "pairing_device": lambda: pairing.pairing_device(pyref.G1_SPEC.generator, pyref.G2_SPEC.generator),
+    "encode_fq12": lambda: pairing.encode_fq12(pyref.Fq12.one()),
+    "fq12_from_jax": lambda: interop.fq12_from_jax(np.zeros((2, 3, 2, 16), np.uint32)),
 }
 
 

@@ -19,7 +19,7 @@ from kogarashi_tpu.signature import (
     batch_verify as jbatch_verify,
 )
 from kogarashi_tpu.signature.reddsa import hash_to_scalar as jhash_to_scalar
-from kogarashi_tpu_torch.pyref import JUBJUB_SPEC
+from kogarashi_tpu_torch.pyref import JUBJUB_SPEC, EdwardsSpec
 from kogarashi_tpu_torch.signature import (
     RedDSA,
     SecretKey,
@@ -103,4 +103,11 @@ def test_batch_verify_checks_its_arguments(both):
     vks = [v for _, v in pairs]
     with pytest.raises(ValueError):
         batch_verify(vks[:2], msgs, sigs, device="cpu")
+    with pytest.raises(ValueError):
+        batch_verify(vks, msgs[:-1], sigs, device="cpu")
+    g = JUBJUB_SPEC.generator
+    other = EdwardsSpec("Jubjub copy", JUBJUB_SPEC.field, JUBJUB_SPEC.d, (g.x, g.y), JUBJUB_SPEC.order,
+                        JUBJUB_SPEC.cofactor)  # the same curve, but not the spec the kernels are built for
+    with pytest.raises(ValueError):
+        batch_verify(vks, msgs, sigs, spec=other, device="cpu")
     assert batch_verify([], [], [], device="cpu") == []
