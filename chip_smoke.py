@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Build the port's CUDA kernels; drive Groth16 (prove, verify), Nova and RedDSA on one GPU.
+"""Build the port's CUDA kernels; drive Groth16 (prove, verify), its distributed leg, Nova and RedDSA on the GPU.
 
     python3 chip_smoke.py
 
@@ -40,8 +40,8 @@ with the card's name and power limit beside it:
            results; the K3 / K4 launches these calls made
   edwards  E1-E3 (csrc/edwards.cu) exactly against their plain versions:
            E2 and E3 at 2^16 lanes and at the signature path's 1024, E1 at
-           2048 lanes (the plain version timed there) and at 16384 (eight
-           tiles of the 2048, each held to the plain result), edge scalars
+           2048 lanes and at 16384 (eight tiles of the 2048, each held to the
+           plain result; the plain version timed at both), edge scalars
            among them; timed on the device beside `ops/edwards.py::bound_ms`,
            E1 also beside its critical-path floor
   signature  RedDSA over Jubjub: 1024 signatures (64 keys, 32-byte messages,
@@ -58,6 +58,14 @@ with the card's name and power limit beside it:
            counters of this run must all be > 0 for G1 and G2, and K2's and
            K4's by lane group (`ec.GROUP_LAUNCHES`) for every group of K2 and
            K4's one-lane one
+  distributed  the distributed leg (`kogarashi_tpu_torch.parallel`) under NCCL,
+           one rank per visible card (`dryrun_multichip`): the H pipeline at
+           2^20 (the groth16 phase's domain) on the 4-step DistributedDomain,
+           equal to the single-device Domain pipeline, and the point-sharded
+           G1 MSM over 2^20 points (c = 16) on K1-K4 in every rank, equal to
+           the host oracle; both timed beside their single-device
+           counterparts in the same rank and beside the msm phase's median;
+           K1-K4 must each have launched in rank 0's run of the path
   pairing  the groth16 phase's proof's verify equation, e(A, B) e(acc, -gamma)
            e(C, -delta), on the card (csrc/pairing.cu): P1 (Miller loop) and
            P2 (final exponentiation), then P3 (the Fq12 map) compares it with
@@ -85,7 +93,8 @@ with the card's name and power limit beside it:
 The last lines are the kernels' JSON record (name, route, source, replaces,
 launches (on the kernel's path: Groth16's for G1 and G2, Nova's for
 Grumpkin, the 1024-signature batch_verify's for E1-E3, the verify
-equation's for P1-P3), path, launches_by_path, max_abs_err, ms, plain_ms,
+equation's for P1-P3), path, launches_by_path (for G1's also the
+distributed path's, counted inside rank 0), max_abs_err, ms, plain_ms,
 bound_ms, bound_by, bound_share, library_ms, shape, times, g for K2 and K4,
 their other shapes, for K2 and K4 launches_by_g, for K2 msm_sum_ms and
 msm_sum_bound_ms, for K4 at one lane, E1, P1 and P2 floor_ms, for P1 and P2
@@ -532,9 +541,9 @@ def jubjub_lanes(n: int, seed: int, dev):
 def phase_edwards(dev, card) -> dict:
     """E1-E3 exactly against their plain versions and timed on the device
     beside `ops/edwards.py::bound_ms` (at the SM clock under load). E1 at
-    2048 lanes (the 1024-signature path's; the plain version timed there)
-    and at 16384 (the 8192-signature path's: eight tiles of the 2048 inputs,
-    each held to the plain result), with its critical-path floor
+    2048 lanes (the 1024-signature path's) and at 16384 (the 8192-signature
+    path's: eight tiles of the 2048 inputs, each held to the plain result),
+    the plain version timed at both, with its critical-path floor
     (LADDER_LEVELS x 256 x one dependent multiply's cycles, csrc/
     imad_probe.cu, + an empty launch); E2 (p - q, the path's form) and E3
     (t = 3) at 2^16 lanes and at the path's 1024."""
@@ -549,6 +558,7 @@ def phase_edwards(dev, card) -> dict:
     p, k = jubjub_lanes(E1_LANES, 11, dev)
     p16, k16 = tuple(c.repeat(1, SIG_TILES) for c in p), k.repeat(1, SIG_TILES)
     want, plain_ms = timed(lambda: E.scalar_mul_plain(JUBJUB, p, k))
+    plain_ms = {E1_LANES: plain_ms, E1_LANES * SIG_TILES: timed(lambda: E.scalar_mul_plain(JUBJUB, p16, k16))[1]}
     clock = sm_clock_under_load(lambda: E.scalar_mul(JUBJUB, p16, k16))
     log("edwards", f"SM clock under load {clock / 1e6:.0f} MHz; one dependent multiply {mul_cycles:.1f} cycles, "
                    f"an empty launch {launch_ms:.5f} ms ({card})")
@@ -565,12 +575,12 @@ def phase_edwards(dev, card) -> dict:
         bound, by = E.bound_ms("ed_scalar_mul", lanes, clock, base_lanes=lanes)
         floor = E.LADDER_LEVELS * 256 * mul_cycles / clock * 1e3 + launch_ms
         runs["ed_scalar_mul"].append(dict(shape=[8, lanes], times=1, max_abs_err=err, ms=ms,
-                                          plain_ms=plain_ms if lanes == E1_LANES else None, bound_ms=bound,
+                                          plain_ms=plain_ms[lanes], bound_ms=bound,
                                           bound_by=by, bound_share=bound / ms, floor_ms=floor))
         log("edwards", f"ed_scalar_mul (8, {lanes}): exact (edge scalars among them); kernel {ms:.4f} ms, bound "
                        f"{bound:.4f} ms ({by}), share {bound / ms:.3f}, critical-path floor {floor:.4f} ms "
                        f"({E.LADDER_LEVELS} levels x 256 bits x {mul_cycles:.1f} cycles + a launch)"
-                       + (f", plain {plain_ms:.1f} ms" if lanes == E1_LANES else "") + f" ({card})")
+                       f", plain {plain_ms[lanes]:.1f} ms ({card})")
     del p16, k16, want
     for lanes in (ED_MAP_LANES, SIG_N):
         a, _ = jubjub_lanes(lanes, 12, dev)
@@ -856,6 +866,46 @@ def phase_groth16(dev, card: str, log2_m: int) -> tuple:
     return launches, by_group, (proof, cs.x[1:], verifier.vk)
 
 
+def phase_distributed(card: str, msm_median_s: float) -> dict:
+    """The distributed leg under NCCL with one rank per visible card, at the
+    groth16 phase's domain (2^LOG2_CONSTRAINTS) and the msm phase's G1 size
+    (2^LOG2_MSM; c = 16 on one rank): `dryrun_multichip` checks the H
+    pipeline against the single-device pipeline and the MSM against the host
+    oracle inside the ranks (a failure, or a rank that dies, raises here),
+    and times each beside its single-device counterpart. Returns rank 0's
+    K1-K4 launches on the distributed path."""
+    import torch
+
+    from kogarashi_tpu_torch.ops import ec
+    from kogarashi_tpu_torch.parallel import dryrun_multichip
+
+    world = torch.cuda.device_count()
+    torch.cuda.empty_cache()  # the ranks share the card(s) with this process
+    t0 = time.perf_counter()
+    rec = dryrun_multichip(world, "nccl", "cuda", log_h=LOG2_CONSTRAINTS, log_msm=LOG2_MSM)
+    wall = time.perf_counter() - t0
+    missing = [f"{k}_g1" for k in ec.KERNELS if rec["launches"][f"{k}_g1"] <= 0]
+    if missing:
+        raise AssertionError(f"kernels not launched on the distributed path: {missing}")
+    mesh = f"{world}-rank mesh" + (" and a 2-D (dp, shard) one" if rec["two_d"] else "")
+    log("distributed", f"nccl, {mesh} on {rec['device']}: H pipeline 2^{rec['log_h']} equal to the single-device "
+                       f"Domain pipeline; G1 MSM 2^{rec['log_msm']} c={rec['c']} equal to the host oracle "
+                       f"(the whole phase {wall:.3f} s, process start and NCCL set-up included; {card})")
+    log("distributed", f"H pipeline 2^{rec['log_h']}: DistributedDomain tables {rec['tables_s']:.4f} s (again, warm: "
+                       f"{rec['tables_warm_s']:.4f} s); first call "
+                       f"{rec['h_first_s']:.4f} s; warm {[round(t, 4) for t in rec['h_s']]} s, median "
+                       f"{rec['h_s_median']:.4f} s; single-device Domain pipeline {[round(t, 4) for t in rec['h_single_s']]} "
+                       f"s, median {rec['h_single_s_median']:.4f} s ({card})")
+    log("distributed", f"G1 MSM 2^{rec['log_msm']}: first call {rec['msm_first_s']:.4f} s; warm "
+                       f"{[round(t, 4) for t in rec['msm_s']]} s, median {rec['msm_s_median']:.4f} s; single-device msm "
+                       f"in the rank {[round(t, 4) for t in rec['msm_single_s']]} s, median "
+                       f"{rec['msm_single_s_median']:.4f} s; the msm phase's median {msm_median_s:.4f} s (host copy "
+                       f"inside) ({card})")
+    log("distributed", f"launches in rank 0: {json.dumps({k: v for k, v in rec['launches'].items() if v})}; "
+                       f"K2 and K4 by lane group g: {json.dumps(rec['group_launches'])}")
+    return rec["launches"]
+
+
 class StepSplit:
     """Wall seconds of the parts of Nova's prove_step, summed while active:
     synthesis (`AugmentedFCircuit.generate`), cross term
@@ -1057,6 +1107,7 @@ def main() -> int:
         print("chip_smoke: kogarashi_tpu_torch/ not found beside this script", file=sys.stderr)
         return 1
     sys.path.insert(0, str(ROOT))
+    t_start = time.perf_counter()
     dev = torch.device("cuda", 0)
     card = smi("name,power.limit", "csv,noheader")
     log("env", f"python {sys.version.split()[0]}, torch {torch.__version__}, CUDA {torch.version.cuda}, "
@@ -1077,13 +1128,14 @@ def main() -> int:
     from kogarashi_tpu_torch.curves import G1, G2
 
     phase_field(dev, card)
-    _, _, k2_launches = msm_check(G1, LOG2_MSM, 16, 0xBE7C4, 1, dev, card)
+    g1_msm_s, _, k2_launches = msm_check(G1, LOG2_MSM, 16, 0xBE7C4, 1, dev, card)
     msm_check(G2, 16, None, 0xBE7C5, 2, dev, card)
     record = phase_ec(dev, card, LOG2_MSM, windows=16, k2_launches=k2_launches)
     phase_curves(dev, card)
     ed_record = phase_edwards(dev, card)
     sig_launches = phase_signature(dev, card)
     g16_launches, g16_by_group, (proof, inputs, pvk) = phase_groth16(dev, card, LOG2_CONSTRAINTS)
+    dist_launches = phase_distributed(card, g1_msm_s)
     pair_launches, pair_record = phase_pairing(dev, card, proof, inputs, pvk)
     paths = {"groth16": (g16_launches, g16_by_group), "nova": phase_nova(dev, card)}
 
@@ -1095,6 +1147,8 @@ def main() -> int:
         entry = dict(name=key, route="cuda", source=EC_SOURCE, replaces=REPLACES[key.rsplit("_", 1)[0]],
                      launches=launches[key], path=path,
                      launches_by_path={k: v[0][key] for k, v in paths.items()}, **rec)
+        if key.endswith("_g1"):
+            entry["launches_by_path"]["distributed"] = dist_launches[key]
         if key in by_group:
             entry["launches_by_g"] = by_group[key]
         kernels.append(entry)
@@ -1106,6 +1160,7 @@ def main() -> int:
         kernels.append(dict(name=key, route="cuda", source=PAIR_SOURCE, replaces=PAIR_REPLACES[key],
                             launches=pair_launches[key], path="groth16_verify",
                             launches_by_path={"groth16_verify": pair_launches[key]}, library_ms=None, **rec))
+    log("done", f"every phase in {time.perf_counter() - t_start:.1f} s ({card})")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

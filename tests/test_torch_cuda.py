@@ -319,3 +319,21 @@ def test_miller_loop_and_final_exp_match_plain(dev):
         assert P.decode_fq12(fe) == final_exp_fast(multi_miller_loop(pairs))
     a = random.Random(3).randrange(1, FR.p)
     assert P.decode_fq12(P.pairing_device(a * g1, g2, dev)) == pairing_fast(a * g1, g2)
+
+
+def test_dryrun_multichip_nccl_one_rank(dev):
+    """The distributed leg under NCCL at world size 1 (the rank on cuda:0),
+    at a small size: the dry run holds the H pipeline to the single-device
+    pipeline and the MSM to the host oracle (it raises otherwise), and rank 0
+    counts each of K1-K4's G1 launches. More ranks than cards raise."""
+    import math
+
+    from kogarashi_tpu_torch.parallel import dryrun_multichip
+    from kogarashi_tpu_torch.parallel.launch import launch
+
+    rec = dryrun_multichip(1, "nccl", "cuda", log_h=8, log_msm=10)
+    assert (rec["world"], rec["backend"], rec["two_d"]) == (1, "nccl", False)
+    assert all(rec["launches"][f"{k}_g1"] > 0 for k in ec.KERNELS), rec["launches"]
+    assert not any(rec["launches"][f"{k}_{c}"] for k in ec.KERNELS for c in ("g2", "grumpkin"))
+    with pytest.raises(RuntimeError, match="CUDA devices"):
+        launch(math.sqrt, torch.cuda.device_count() + 1, "nccl", args=(1.0,))

@@ -32,7 +32,8 @@ def test_port_imports_no_jax():
     files = sorted(f for f in PORT.rglob("*.py") if "_build" not in f.relative_to(PORT).parts)
     assert files
     scanned = {f.relative_to(PORT).parts[0] for f in files}
-    assert {"nova", "utils", "ops", "pyref", "r1cs", "groth16", "curves", "signature", "pallet"} <= scanned
+    assert {"nova", "utils", "ops", "pyref", "r1cs", "groth16", "curves", "signature", "pallet",
+            "parallel"} <= scanned
     for f in files:
         for mod in _imports(f):
             top = mod.split(".")
