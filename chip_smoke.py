@@ -73,8 +73,11 @@ with the card's name and power limit beside it:
            the result equals the host's, bit for bit, and a changed public
            input is rejected; pairing_device = pairing_fast on (a G1, G2) for
            a = 1, 2, r - 1 and two seeded values; P1 and P2 held to their
-           plain versions on the card and timed beside their critical-path
-           floors and the host pairing's seconds; P3 at 2^16 lanes, every op
+           plain versions on the card and timed beside their depth floor (the
+           schedule's levels at one dependent inline multiply, the Fermat
+           inverse's chain, a launch), their one-thread floor and the host
+           pairing's seconds, with the build's registers, stack and spills;
+           P3 at 2^16 lanes, every op
            (mul, sq, inv, frobenius, conj, mul_by_034), held to its plain
            version and timed beside its bound
   nova     Nova IVC at the fixture's full size (`phase_nova`): the 3-step
@@ -97,9 +100,11 @@ equation's for P1-P3), path, launches_by_path (for G1's also the
 distributed path's, counted inside rank 0), max_abs_err, ms, plain_ms,
 bound_ms, bound_by, bound_share, library_ms, shape, times, g for K2 and K4,
 their other shapes, for K2 and K4 launches_by_g, for K2 msm_sum_ms and
-msm_sum_bound_ms, for K4 at one lane, E1, P1 and P2 floor_ms, for P1 and P2
-the host's seconds, for P3 its other ops), the card, and
-{"ok": true, "device": {...}}. Without a CUDA device it exits non-zero.
+msm_sum_bound_ms, for K4 at one lane and E1 floor_ms, for P1 and P2
+threads, one_thread_floor_ms, depth_floor_ms and its share,
+levels, the build's registers and the host's seconds, for P3 its other
+ops), the card, and {"ok": true, "device": {...}}. Without a CUDA device it
+exits non-zero.
 """
 
 from __future__ import annotations
@@ -718,13 +723,13 @@ def phase_pairing(dev, card: str, proof, inputs, pvk) -> tuple:
     loop's too, and a changed public input must be rejected; `pairing_device`
     must equal `pairing_fast` on (a G1, G2) for a = 1, 2, r - 1 and two seeded
     values. P1 and P2 are held to their plain versions on the card and timed
-    (`ec.device_ms`) beside their critical-path floors and the host pairing's
-    time for the same equation; P3 at P3_LANES lanes, every op, against its
-    plain version, timed beside its bound."""
+    (`ec.device_ms`) beside their depth and one-thread floors, the build's
+    registers and the host pairing's time for the same equation; P3 at P3_LANES
+    lanes, every op, against its plain version, timed beside its bound."""
     import torch
 
     from kogarashi_tpu_torch import constants as C
-    from kogarashi_tpu_torch.ops import ec
+    from kogarashi_tpu_torch.ops import _build, ec
     from kogarashi_tpu_torch.ops import pairing as P
     from kogarashi_tpu_torch.pyref import G1_SPEC, G2_SPEC
     from kogarashi_tpu_torch.pyref.pairing_fast import final_exp_fast, multi_miller_loop, pairing_fast
@@ -769,32 +774,44 @@ def phase_pairing(dev, card: str, proof, inputs, pvk) -> tuple:
     log("pairing", f"launches: {json.dumps(launches)}")
 
     mul_cycles = ec.mul_latency_cycles(dev, call=True)
+    inline_cycles = ec.mul_latency_cycles(dev, call=False)
     launch_ms = ec.empty_launch_ms(dev)
     a = random_fq12_words(P3_LANES, 1, dev)
     b = random_fq12_words(P3_LANES, 2, dev)
     c = random_fq12_words(P3_LANES, 3, dev, rows=48)
     clock = sm_clock_under_load(lambda: P.f12_mul(a, b))
-    log("pairing", f"SM clock under load {clock / 1e6:.0f} MHz; one dependent multiply through fp_mul_call "
-                   f"{mul_cycles:.1f} cycles, an empty launch {launch_ms:.5f} ms ({card})")
+    log("pairing", f"SM clock under load {clock / 1e6:.0f} MHz; one dependent multiply {inline_cycles:.1f} cycles "
+                   f"inline, {mul_cycles:.1f} through fp_mul_call; an empty launch {launch_ms:.5f} ms ({card})")
+    builds = {line.split(":")[0]: line.split(": ", 1)[1] for line in _build.ptxas_report()}
     record = {}
     coeffs = P._encode_prepared(pairs, dev)
-    for kname, kern, plain, want_out, reps in (
-            ("pair_miller_loop", lambda: P.miller_loop_coeffs(coeffs), lambda: P.miller_loop_plain(coeffs), ml, 10),
-            ("pair_final_exp", lambda: P.final_exp_device(ml), lambda: P.final_exp_plain(ml), fe, 5)):
+    n_pairs = len(pairs)
+    threads = P.pair_threads()
+    for kname, kern, plain, want_out in (
+            ("pair_miller_loop", lambda: P.miller_loop_coeffs(coeffs), lambda: P.miller_loop_plain(coeffs), ml),
+            ("pair_final_exp", lambda: P.final_exp_device(ml), lambda: P.final_exp_plain(ml), fe)):
         want, plain_ms = timed(plain)
         err = max_abs_err((want_out,), (want,))
-        if err:
+        if err or not torch.equal(kern(), want):
             raise AssertionError(f"{kname}: kernel differs from the plain version")
-        ms = cuda_ms(kern, reps=reps)
-        bound, by = P.bound_ms(kname, clock, n_pairs=len(pairs))
-        floor = P.floor_ms(kname, mul_cycles, clock, launch_ms, n_pairs=len(pairs))
+        ms = cuda_ms(kern, reps=10)
+        bound, by = P.bound_ms(kname, clock, n_pairs=n_pairs)
+        one = P.one_thread_floor_ms(kname, mul_cycles, clock, launch_ms, n_pairs=n_pairs)
+        depth = P.depth_floor_ms(kname, inline_cycles, mul_cycles, clock, launch_ms, n_pairs=n_pairs)
+        levels, inverses = P.depth_levels(kname, n_pairs)
+        build = builds.get(f"{kname}_kernel", "not in the ptxas log")
         shape = list(coeffs.shape) if kname == "pair_miller_loop" else [96]
         record[kname] = dict(shape=shape, max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by,
-                             bound_share=bound / ms, floor_ms=floor, fq_muls=P.kernel_muls(kname, len(pairs)),
+                             bound_share=bound / ms, threads=threads, one_thread_floor_ms=one,
+                             depth_floor_ms=depth, depth_floor_share=depth / ms, levels=levels,
+                             fermat_inverses=inverses, fq_muls=P.schedule_muls(kname, n_pairs), build=build,
                              host_s=t_host_ml if kname == "pair_miller_loop" else t_host_fe)
-        log("pairing", f"{kname} {tuple(shape)}: exact; kernel {ms:.4f} ms, critical-path floor {floor:.4f} ms "
-                       f"({record[kname]['fq_muls']} Fq multiplies x {mul_cycles:.1f} cycles + a launch), bound "
-                       f"{bound:.6f} ms ({by}), plain {plain_ms:.1f} ms, host {record[kname]['host_s'] * 1e3:.1f} ms "
+        log("pairing", f"{kname} {tuple(shape)}: exact; kernel {ms:.4f} ms on a block of {threads} threads; depth "
+                       f"floor {depth:.4f} ms ({levels} levels x {inline_cycles:.1f} cycles + {inverses} Fermat "
+                       f"inverse of {P._INV_FQ} x {mul_cycles:.1f} + a launch), share {depth / ms:.3f}; one-thread "
+                       f"floor {one:.4f} ms ({P.kernel_muls(kname, n_pairs)} Fq multiplies x {mul_cycles:.1f} cycles "
+                       f"+ a launch); bound {bound:.6f} ms ({by}, {record[kname]['fq_muls']} Fq multiplies); plain "
+                       f"{plain_ms:.1f} ms, host {record[kname]['host_s'] * 1e3:.1f} ms; {kname}_kernel: {build} "
                        f"({card})")
     ops = {}
     for op in P.OPS:

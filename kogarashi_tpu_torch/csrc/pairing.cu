@@ -25,8 +25,9 @@
 // the tower to one Fermat inverse in Fq (field.cuh `fp_inv`). Every field op
 // is canonical (field.cuh), so each output equals the plain version's
 // (ops/pairing.py) bit for bit. The Frobenius coefficients come from the
-// host as Montgomery words (pyref/tower.py's tables), 12 powers x (FQ6_C1,
-// FQ6_C2, FQ12_C1) x 16 words.
+// host as Montgomery words (pyref/tower.py's tables): P3's as 12 powers x
+// (FQ6_C1, FQ6_C2, FQ12_C1) x 16 words, P2's (power 2) among its schedule's
+// constants.
 //
 // Layout: an Fq12 is 12 Fq components in `Fq12.to_fq_list` order (c0.c0.c0,
 // c0.c0.c1, c0.c1.c0, ..., c1.c2.c1), 8 words each: (96, n) int32, word k of
@@ -34,23 +35,41 @@
 // (n_folds, n_pairs, 3, 16): per fold and pair the three Fq2s c0, c1, c2 of
 // the line, each c0's 8 words then c1's.
 //
-// What bounds them (ops/pairing.py `bound_ms`, `floor_ms`):
-//   P1, P2: one thread runs the whole product, since each fold and each bit
-//     needs the one before. The chip-wide bound (32-bit multiply-adds at 64
-//     per SM per clock on 132 SMs) is microseconds; the floor is the chain of
-//     Fq multiplies on that one thread, each a call (fp_mul_call) whose
-//     dependent latency csrc/imad_probe.cu measures. On an H100 both take
-//     about 3x that floor (PERF.md): the calls move their operands. Spreading
-//     a product over a warp's lanes (as K4 does, csrc/ec.cu) is left for a
-//     later change.
+// What bounds them (ops/pairing.py `bound_ms`, `one_thread_floor_ms`,
+// `depth_floor_ms`):
+//   P1, P2: each fold and each bit needs the one before, so one block does
+//     the whole product; the chip-wide bound (32-bit multiply-adds at 64 per
+//     SM per clock on 132 SMs) is microseconds. Inside a tower op every Fq
+//     product is independent of the others: a square is 36, a multiply 54,
+//     a line 39, a set bit's multiply and the next square 90. So a block of
+//     kPairT threads (96, the fastest of 32, 64 and 96 on an H100) runs the
+//     op as one level: each thread forms its
+//     product's two operands from the Fq components in shared memory (the
+//     Karatsuba pre-additions, the multiplies by xi and by v, conjugation:
+//     sums of small multiples of slots, each slot kept beside its negation
+//     so that a sum only adds; kept unreduced and reduced once), makes one
+//     inline Montgomery multiply and writes it to shared memory; a barrier;
+//     groups of lanes rebuild the result's components from the products,
+//     each lane a share of the terms, added across the group by shuffles; a
+//     barrier. What the level computes is data, built and checked in Python
+//     (ops/pairing_schedule.py) and handed over as one int32 table, so the
+//     exact table the card reads is tested on the CPU
+//     (tests/test_torch_pairing_schedule.py). The floor is then the levels'
+//     chain (336 for P1 at 3 pairs, 771 for P2) at one dependent multiply
+//     each, plus the easy part's one Fermat inverse in Fq (fp_inv, 366
+//     multiplies through fp_mul_call), which one thread runs while the rest
+//     wait at the barrier. P1 stages its line records into shared memory a
+//     chunk at a time with cp.async, the next chunk in flight, so any number
+//     of pairs fits. One thread alone would be held to the chain of all
+//     12915 / 48970 multiplies (`one_thread_floor_ms`).
 //   P3: one thread per lane; at the 2^16 lanes chip_smoke.py runs, the issue
-//     rate of the multiply-adds bounds it.
-// Elements live in local memory: the tower's helpers are __noinline__ and
-// take references, so the compiler keeps one Fq2 multiply's words in
-// registers at a time (a fully inlined Fq12 multiply would be 54 inlined
-// products; field.cuh notes that inlining the Fq2 multiply alone once crashed
-// the compiler). chip_smoke.py's build phase prints each kernel's registers,
-// stack and spills.
+//     rate of the multiply-adds bounds it. Its elements live in local
+//     memory: the tower's helpers below are __noinline__ and take references,
+//     so the compiler keeps one Fq2 multiply's words in registers at a time
+//     (a fully inlined Fq12 multiply would be 54 inlined products; field.cuh
+//     notes that inlining the Fq2 multiply alone once crashed the compiler).
+// chip_smoke.py's build phase prints each kernel's registers, stack and
+// spills.
 
 #include <cuda_runtime.h>
 
@@ -70,7 +89,15 @@ struct F12 {
   F6 c0, c1;
 };
 
-constexpr int kPairThreads = 128;
+constexpr int kPairThreads = 128;  // P3's block
+
+// P1's and P2's block: 96 threads was the fastest of 32, 64 and 96 on an
+// H100 (PERF.md); kogarashi_tpu_torch/profile_pairing.py builds and times
+// each with -DKT_PAIR_T.
+#ifndef KT_PAIR_T
+#define KT_PAIR_T 96
+#endif
+constexpr int kPairT = KT_PAIR_T;
 
 // ---------------------------------------------------------------------------
 // Fq2
@@ -185,15 +212,6 @@ __device__ __noinline__ void f6_inv(F6& r, const F6& a) {
 // Fq12 = Fq6[w]/(w^2 - v); r may be an operand, as above
 // ---------------------------------------------------------------------------
 
-__device__ __forceinline__ void f12_one(F12& r) {
-  r.c0.c0 = A2::one();
-  r.c0.c1 = A2::zero();
-  r.c0.c2 = A2::zero();
-  r.c1.c0 = A2::zero();
-  r.c1.c1 = A2::zero();
-  r.c1.c2 = A2::zero();
-}
-
 __device__ __noinline__ void f12_mul(F12& r, const F12& a, const F12& b) {
   F6 t0, t1, s, u;
   f6_mul(t0, a.c0, b.c0);
@@ -299,53 +317,392 @@ __device__ __forceinline__ void f12_store(u32* __restrict__ a, size_t plane, siz
 }
 
 // ---------------------------------------------------------------------------
-// kernels
+// P1, P2: one block of kPairT threads runs a schedule (ops/pairing_schedule.py),
+// level by level
 // ---------------------------------------------------------------------------
 
-// P1: one thread; per fold the square (if flagged), then each pair's line.
-__global__ void __launch_bounds__(32, 1)
-    pair_miller_loop_kernel(const int* __restrict__ flags, const u32* __restrict__ coeffs,
-                            int n_folds, int n_pairs, u32* __restrict__ out) {
-  if (blockIdx.x != 0 || threadIdx.x != 0) return;
-  F12 acc;
-  f12_one(acc);
-#pragma unroll 1
-  for (int f = 0; f < n_folds; f++) {
-    if (flags[f]) f12_sq(acc, acc);
-#pragma unroll 1
-    for (int j = 0; j < n_pairs; j++) {
-      const u32* c = coeffs + ((size_t)f * n_pairs + j) * 48;
-      const F2 c0 = load_f2(c, 1, 0);
-      const F2 c3 = load_f2(c + 16, 1, 0);
-      const F2 c4 = load_f2(c + 32, 1, 0);
-      f12_mul_by_034(acc, acc, c0, c3, c4);
-    }
+// The schedule table's header and entries, as ops/pairing_schedule.py
+// `_encode` writes them
+enum {
+  kHdrSlots = 0, kHdrLevels, kHdrLevelOff, kHdrConsts, kHdrConstOff, kHdrIn, kHdrOut,
+  kHdrShared, kHdrProgram, kHdrProgramLen, kHdrZero
+};
+constexpr int kProdWords = 5, kOutWords = 3;
+enum LevelKind { kLevel = 0, kInverse = 1, kLine = 2 };
+constexpr int kLineWords = 48;  // one line record: c0, c3, c4
+constexpr int kLineChunk = 16;  // records staged at a time (pairing_schedule.py LINE_CHUNK)
+
+// A sum of c_i x_i over Fq values x_i <= q (a slot or its negation q -
+// slot, so every c_i > 0), kept unreduced as x + 2^32 y: x the rows of the
+// even words (columns 0-8), y those of the odd words (y[k] in column k + 1),
+// as field.cuh's multiply keeps its running value, so a term's two chains
+// are independent. The schedule keeps the sum of c_i at most 2^14, so the
+// sum stays below 2^14 q < 2^268: no chain carries out of x[8] or y[7].
+struct Wide {
+  u32 x[9];
+  u32 y[8];
+};
+
+__device__ __forceinline__ void wide_zero(Wide& a) {
+#pragma unroll
+  for (int k = 0; k < 8; k++) {
+    a.x[k] = 0;
+    a.y[k] = 0;
   }
-  f12_store(out, 1, 0, acc);
+  a.x[8] = 0;
 }
 
-// P2: one thread; the easy part, then the hard part over `bits` (0 or 1
-// each), lowest first: result *= base where set, base squared between bits.
-__global__ void __launch_bounds__(32, 1)
-    pair_final_exp_kernel(const u32* __restrict__ f, const u32* __restrict__ frob,
-                          const int* __restrict__ bits, int n_bits, u32* __restrict__ out) {
-  if (blockIdx.x != 0 || threadIdx.x != 0) return;
-  F12 a, t, u;
-  f12_load(a, f, 1, 0);
-  f12_conj(t, a);
-  f12_inv(u, a);
-  f12_mul(t, t, u);
-  f12_frobenius(u, t, 2, frob);
-  f12_mul(t, u, t);
-  F12 result;
-  f12_one(result);
-#pragma unroll 1
-  for (int i = 0; i < n_bits; i++) {
-    if (bits[i]) f12_mul(result, result, t);
-    if (i + 1 < n_bits) f12_sq(t, t);
-  }
-  f12_store(out, 1, 0, result);
+// a += c x, x the Fq at src
+__device__ __forceinline__ void wide_term(Wide& a, const u32* __restrict__ src, u32 c) {
+  const uint4 lo = reinterpret_cast<const uint4*>(src)[0];
+  const uint4 hi = reinterpret_cast<const uint4*>(src)[1];
+  even_row(a.x, a.x[8], lo.x, lo.z, hi.x, hi.z, c);
+  odd_row(a.y, lo.y, lo.w, hi.y, hi.w, c);
 }
+
+// a += b
+__device__ __forceinline__ void wide_add(Wide& a, const Wide& b) {
+  asm("add.cc.u32  %0, %0, %9;\n\t"
+      "addc.cc.u32 %1, %1, %10;\n\t"
+      "addc.cc.u32 %2, %2, %11;\n\t"
+      "addc.cc.u32 %3, %3, %12;\n\t"
+      "addc.cc.u32 %4, %4, %13;\n\t"
+      "addc.cc.u32 %5, %5, %14;\n\t"
+      "addc.cc.u32 %6, %6, %15;\n\t"
+      "addc.cc.u32 %7, %7, %16;\n\t"
+      "addc.u32    %8, %8, %17;"
+      : "+r"(a.x[0]), "+r"(a.x[1]), "+r"(a.x[2]), "+r"(a.x[3]), "+r"(a.x[4]), "+r"(a.x[5]),
+        "+r"(a.x[6]), "+r"(a.x[7]), "+r"(a.x[8])
+      : "r"(b.x[0]), "r"(b.x[1]), "r"(b.x[2]), "r"(b.x[3]), "r"(b.x[4]), "r"(b.x[5]),
+        "r"(b.x[6]), "r"(b.x[7]), "r"(b.x[8]));
+  asm("add.cc.u32  %0, %0, %8;\n\t"
+      "addc.cc.u32 %1, %1, %9;\n\t"
+      "addc.cc.u32 %2, %2, %10;\n\t"
+      "addc.cc.u32 %3, %3, %11;\n\t"
+      "addc.cc.u32 %4, %4, %12;\n\t"
+      "addc.cc.u32 %5, %5, %13;\n\t"
+      "addc.cc.u32 %6, %6, %14;\n\t"
+      "addc.u32    %7, %7, %15;"
+      : "+r"(a.y[0]), "+r"(a.y[1]), "+r"(a.y[2]), "+r"(a.y[3]), "+r"(a.y[4]), "+r"(a.y[5]),
+        "+r"(a.y[6]), "+r"(a.y[7])
+      : "r"(b.y[0]), "r"(b.y[1]), "r"(b.y[2]), "r"(b.y[3]), "r"(b.y[4]), "r"(b.y[5]),
+        "r"(b.y[6]), "r"(b.y[7]));
+}
+
+// s = x + 2^32 y, 9 words
+__device__ __forceinline__ void wide_merge(u32* s, const Wide& a) {
+  s[0] = a.x[0];
+  asm("add.cc.u32  %0, %8,  %16;\n\t"
+      "addc.cc.u32 %1, %9,  %17;\n\t"
+      "addc.cc.u32 %2, %10, %18;\n\t"
+      "addc.cc.u32 %3, %11, %19;\n\t"
+      "addc.cc.u32 %4, %12, %20;\n\t"
+      "addc.cc.u32 %5, %13, %21;\n\t"
+      "addc.cc.u32 %6, %14, %22;\n\t"
+      "addc.u32    %7, %15, %23;"
+      : "=r"(s[1]), "=r"(s[2]), "=r"(s[3]), "=r"(s[4]), "=r"(s[5]), "=r"(s[6]), "=r"(s[7]),
+        "=r"(s[8])
+      : "r"(a.x[1]), "r"(a.x[2]), "r"(a.x[3]), "r"(a.x[4]), "r"(a.x[5]), "r"(a.x[6]),
+        "r"(a.x[7]), "r"(a.x[8]), "r"(a.y[0]), "r"(a.y[1]), "r"(a.y[2]), "r"(a.y[3]),
+        "r"(a.y[4]), "r"(a.y[5]), "r"(a.y[6]), "r"(a.y[7]));
+}
+
+// s += o, 9 words
+__device__ __forceinline__ void add9(u32* s, const u32* o) {
+  asm("add.cc.u32  %0, %0, %9;\n\t"
+      "addc.cc.u32 %1, %1, %10;\n\t"
+      "addc.cc.u32 %2, %2, %11;\n\t"
+      "addc.cc.u32 %3, %3, %12;\n\t"
+      "addc.cc.u32 %4, %4, %13;\n\t"
+      "addc.cc.u32 %5, %5, %14;\n\t"
+      "addc.cc.u32 %6, %6, %15;\n\t"
+      "addc.cc.u32 %7, %7, %16;\n\t"
+      "addc.u32    %8, %8, %17;"
+      : "+r"(s[0]), "+r"(s[1]), "+r"(s[2]), "+r"(s[3]), "+r"(s[4]), "+r"(s[5]), "+r"(s[6]),
+        "+r"(s[7]), "+r"(s[8])
+      : "r"(o[0]), "r"(o[1]), "r"(o[2]), "r"(o[3]), "r"(o[4]), "r"(o[5]), "r"(o[6]), "r"(o[7]),
+        "r"(o[8]));
+}
+
+// r = s mod q, canonical, for s (9 words) < 2^14 q. With h = floor(s /
+// 2^224) and q_7 q's top word, e = floor(h / (q_7 + 1)) <= s / q (since q <
+// (q_7 + 1) 2^224), and s / q - e < (h + 1) / q_7 - h / (q_7 + 1) + 1 <
+// 2.001 for h < 2^44, so s - e q lies in [0, 3q), below 2^256: two
+// conditional subtracts finish it.
+__device__ __forceinline__ void reduce9(u32* r, const u32* s) {
+  u32 ep[9];
+  const unsigned long long h = ((unsigned long long)s[8] << 32) | s[7];
+  const u32 e = (u32)(h / ((unsigned long long)Fq::p(7) + 1));
+  Wide m;
+  wide_zero(m);
+  even_row(m.x, m.x[8], Fq::p(0), Fq::p(2), Fq::p(4), Fq::p(6), e);
+  odd_row(m.y, Fq::p(1), Fq::p(3), Fq::p(5), Fq::p(7), e);
+  wide_merge(ep, m);
+  u32 t[8], t2[8];
+  asm("sub.cc.u32  %0, %8,  %16;\n\t"
+      "subc.cc.u32 %1, %9,  %17;\n\t"
+      "subc.cc.u32 %2, %10, %18;\n\t"
+      "subc.cc.u32 %3, %11, %19;\n\t"
+      "subc.cc.u32 %4, %12, %20;\n\t"
+      "subc.cc.u32 %5, %13, %21;\n\t"
+      "subc.cc.u32 %6, %14, %22;\n\t"
+      "subc.u32    %7, %15, %23;"
+      : "=r"(t[0]), "=r"(t[1]), "=r"(t[2]), "=r"(t[3]), "=r"(t[4]), "=r"(t[5]), "=r"(t[6]),
+        "=r"(t[7])
+      : "r"(s[0]), "r"(s[1]), "r"(s[2]), "r"(s[3]), "r"(s[4]), "r"(s[5]), "r"(s[6]), "r"(s[7]),
+        "r"(ep[0]), "r"(ep[1]), "r"(ep[2]), "r"(ep[3]), "r"(ep[4]), "r"(ep[5]), "r"(ep[6]),
+        "r"(ep[7]));
+  cond_sub_p<Fq>(t2, t);
+  cond_sub_p<Fq>(r, t2);
+}
+
+__device__ __forceinline__ void wide_reduce(u32* r, const Wide& a) {
+  u32 s[9];
+  wide_merge(s, a);
+  reduce9(r, s);
+}
+
+// Slot `slot` (of n_slots) := v, and its negation slot n_slots + slot :=
+// q - v (q for 0: every value a sum reads is at most q)
+__device__ __forceinline__ void slot_store(u32* S, int n_slots, int slot, const u32* v) {
+  uint4* d = reinterpret_cast<uint4*>(S + 8 * slot);
+  d[0] = make_uint4(v[0], v[1], v[2], v[3]);
+  d[1] = make_uint4(v[4], v[5], v[6], v[7]);
+  u32 n[8];
+  asm("sub.cc.u32  %0, %8,  %16;\n\t"
+      "subc.cc.u32 %1, %9,  %17;\n\t"
+      "subc.cc.u32 %2, %10, %18;\n\t"
+      "subc.cc.u32 %3, %11, %19;\n\t"
+      "subc.cc.u32 %4, %12, %20;\n\t"
+      "subc.cc.u32 %5, %13, %21;\n\t"
+      "subc.cc.u32 %6, %14, %22;\n\t"
+      "subc.u32    %7, %15, %23;"
+      : "=r"(n[0]), "=r"(n[1]), "=r"(n[2]), "=r"(n[3]), "=r"(n[4]), "=r"(n[5]), "=r"(n[6]),
+        "=r"(n[7])
+      : "r"(Fq::p(0)), "r"(Fq::p(1)), "r"(Fq::p(2)), "r"(Fq::p(3)), "r"(Fq::p(4)),
+        "r"(Fq::p(5)), "r"(Fq::p(6)), "r"(Fq::p(7)), "r"(v[0]), "r"(v[1]), "r"(v[2]),
+        "r"(v[3]), "r"(v[4]), "r"(v[5]), "r"(v[6]), "r"(v[7]));
+  uint4* dn = reinterpret_cast<uint4*>(S + 8 * (n_slots + slot));
+  dn[0] = make_uint4(n[0], n[1], n[2], n[3]);
+  dn[1] = make_uint4(n[4], n[5], n[6], n[7]);
+}
+
+// Where a thread's terms come from: the shared slots and their negations
+// (below 2 n_slots), the current line record past them, and the zero
+// slot's term (coefficient 0) that pads a chunk.
+struct Terms {
+  const u32* S;
+  const u32* line;
+  int n_slots, pad;
+  __device__ __forceinline__ const u32* at(int t) const {
+    const int slot = t & 0xffff;
+    return slot < 2 * n_slots ? S + 8 * slot : line + 8 * (slot - 2 * n_slots);
+  }
+};
+
+// Terms a thread loads and adds at a time: a chunk's loads go out together,
+// and its terms' carry chains interleave.
+constexpr int kTermChunk = 4;
+
+// A level's products, one a thread (a thread takes k, k + kPairT, ... when there
+// are more): both operands' sums side by side, a chunk of terms at a time (a
+// term past an operand's count is the zero slot's), reduced, one inline
+// multiply, to the product's slot and its negation.
+__device__ __forceinline__ void level_products(const int* tab, const int* rows, int n,
+                                               const Terms& src, u32* S) {
+#pragma unroll 1
+  for (int k = threadIdx.x; k < n; k += kPairT) {
+    const int* e = rows + kProdWords * k;
+    const int* ta = tab + e[1];
+    const int* tb = tab + e[3];
+    const int na = e[2], nb = e[4];
+    Wide a, b;
+    wide_zero(a);
+    wide_zero(b);
+#pragma unroll 1
+    for (int i = 0; i < max(na, nb); i += kTermChunk) {
+      int wa[kTermChunk], wb[kTermChunk];
+#pragma unroll
+      for (int u = 0; u < kTermChunk; u++) {
+        wa[u] = i + u < na ? ta[i + u] : src.pad;
+        wb[u] = i + u < nb ? tb[i + u] : src.pad;
+      }
+#pragma unroll
+      for (int u = 0; u < kTermChunk; u++) {
+        wide_term(a, src.at(wa[u]), (u32)wa[u] >> 16);
+        wide_term(b, src.at(wb[u]), (u32)wb[u] >> 16);
+      }
+    }
+    u32 x[8], y[8], m[8];
+    wide_reduce(x, a);
+    wide_reduce(y, b);
+    fp_mul<Fq>(m, x, y);
+    slot_store(S, src.n_slots, e[0], m);
+  }
+}
+
+// A level's outputs, each on a group of G lanes of one warp (G the largest
+// power of two up to 32 with n G <= kPairT): lane l sums the terms l, l + G, ...,
+// a chunk at a time into two wide sums, merges them to 9 words, the group
+// adds its sums by __shfl_xor_sync, and its first lane reduces and stores.
+// Every thread of the block runs the same iterations, so every lane of a
+// warp reaches each shuffle.
+__device__ __forceinline__ void level_outputs(const int* tab, const int* rows, int n,
+                                              const Terms& src, u32* S) {
+  int G = 1;
+  while (G < 32 && 2 * G * n <= kPairT) G *= 2;
+  const int lane = threadIdx.x & (G - 1);
+#pragma unroll 1
+  for (int base = 0; base < n * G; base += kPairT) {
+    const int j = (base + threadIdx.x) / G;
+    const bool live = j < n;
+    const int* e = rows + kOutWords * (live ? j : 0);
+    const int* tt = tab + e[1];
+    const int nt = live ? e[2] : 0;
+    Wide a, b;
+    wide_zero(a);
+    wide_zero(b);
+#pragma unroll 1
+    for (int i = lane; i < nt; i += kTermChunk * G) {
+      int w[kTermChunk];
+#pragma unroll
+      for (int u = 0; u < kTermChunk; u++) w[u] = i + u * G < nt ? tt[i + u * G] : src.pad;
+#pragma unroll
+      for (int u = 0; u < kTermChunk; u++) wide_term(u & 1 ? b : a, src.at(w[u]), (u32)w[u] >> 16);
+    }
+    wide_add(a, b);
+    u32 s[9];
+    wide_merge(s, a);
+#pragma unroll 1
+    for (int off = G / 2; off > 0; off >>= 1) {
+      u32 o[9];
+#pragma unroll
+      for (int k = 0; k < 9; k++) o[k] = __shfl_xor_sync(0xffffffffu, s[k], off);
+      add9(s, o);
+    }
+    if (live && lane == 0) {
+      u32 r[8];
+      reduce9(r, s);
+      slot_store(S, src.n_slots, e[0], r);
+    }
+  }
+}
+
+// Copies `count` line records from `src` into shared memory at `dst`,
+// asynchronously (cp.async, one group); 4 bytes a copy, so the caller's
+// tensor needs no alignment beyond its words'.
+__device__ __forceinline__ void stage_lines(u32* dst, const u32* __restrict__ src, int count) {
+#pragma unroll 1
+  for (int i = threadIdx.x; i < count * kLineWords; i += kPairT) {
+    const unsigned d = (unsigned)__cvta_generic_to_shared(dst + i);
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;" ::"r"(d), "l"(src + i) : "memory");
+  }
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+
+// The schedule `sched` (device memory) on this block: its table (all but the
+// program) into shared memory, the slots zeroed, the constants and the input
+// Fq12 (if the schedule takes one) written, then the program's levels in
+// order. `lines`: n_lines records, consumed one by each LINE level, staged
+// kLineChunk at a time into two buffers, the next chunk in flight while
+// this one is read. The output Fq12 goes to `out`.
+__device__ __forceinline__ void run_schedule(const int* __restrict__ sched,
+                                             const u32* __restrict__ in,
+                                             const u32* __restrict__ lines, int n_lines,
+                                             u32* __restrict__ out) {
+  extern __shared__ uint4 smem[];
+  int* tab = reinterpret_cast<int*>(smem);
+  const int shared_words = sched[kHdrShared];
+#pragma unroll 1
+  for (int i = threadIdx.x; i < shared_words; i += kPairT) tab[i] = sched[i];
+  __syncthreads();
+  const int n_slots = tab[kHdrSlots];
+  u32* S = reinterpret_cast<u32*>(smem) + ((shared_words + 3) & ~3);
+  u32* lbuf = S + 16 * n_slots;  // past the slots and their negations
+#pragma unroll 1
+  for (int i = threadIdx.x; i < 16 * n_slots; i += kPairT) S[i] = 0;
+  __syncthreads();
+  const int* consts = tab + tab[kHdrConstOff];
+#pragma unroll 1
+  for (int i = threadIdx.x; i < 8 * tab[kHdrConsts]; i += kPairT) {
+    const int* c = consts + 9 * (i >> 3);
+    S[8 * c[0] + (i & 7)] = (u32)c[1 + (i & 7)];
+  }
+  if (tab[kHdrIn] >= 0 && threadIdx.x < 12) {
+    u32 v[8];
+#pragma unroll
+    for (int k = 0; k < 8; k++) v[k] = in[8 * threadIdx.x + k];
+    slot_store(S, n_slots, tab[kHdrIn] + threadIdx.x, v);
+  }
+  if (n_lines > 0) stage_lines(lbuf, lines, min(kLineChunk, n_lines));
+  __syncthreads();
+  const int* levels = tab + tab[kHdrLevelOff];
+  Terms src{S, lbuf, n_slots, tab[kHdrZero]};
+  const int* program = sched + tab[kHdrProgram];
+  const int n_prog = tab[kHdrProgramLen];
+  int r = 0;  // line records consumed
+#pragma unroll 1
+  for (int pc = 0; pc < n_prog; pc++) {
+    const int* lv = levels + 5 * __ldg(program + pc);
+    if (lv[0] == kInverse) {
+      if (threadIdx.x == 0) {
+        Elem<8> v;
+#pragma unroll
+        for (int k = 0; k < 8; k++) v.v[k] = S[8 * lv[1] + k];
+        v = fp_inv<Fq>(v);
+        slot_store(S, n_slots, lv[2], v.v);
+      }
+      __syncthreads();
+      continue;
+    }
+    if (lv[0] == kLine) {
+      const int chunk = r / kLineChunk, at = r % kLineChunk;
+      if (at == 0) {
+        // this chunk has landed; every thread is past the chunk before it
+        asm volatile("cp.async.wait_group 0;" ::: "memory");
+        __syncthreads();
+        const int next = r + kLineChunk;
+        if (next < n_lines)
+          stage_lines(lbuf + ((chunk + 1) & 1) * kLineChunk * kLineWords,
+                         lines + (size_t)next * kLineWords, min(kLineChunk, n_lines - next));
+      }
+      src.line = lbuf + ((chunk & 1) * kLineChunk + at) * kLineWords;
+      r++;
+    }
+    level_products(tab, tab + lv[2], lv[1], src, S);
+    __syncthreads();
+    level_outputs(tab, tab + lv[4], lv[3], src, S);
+    __syncthreads();
+  }
+#pragma unroll 1
+  for (int i = threadIdx.x; i < 96; i += kPairT) out[i] = S[8 * tab[kHdrOut] + i];
+}
+
+// P1: the Miller loop's schedule over n_lines = n_folds x n_pairs line
+// records (coeffs, (n_folds, n_pairs, 3, 16) words).
+__global__ void __launch_bounds__(kPairT, 1)
+    pair_miller_loop_kernel(const int* __restrict__ sched, const u32* __restrict__ coeffs,
+                            int n_lines, u32* __restrict__ out) {
+  run_schedule(sched, nullptr, coeffs, n_lines, out);
+}
+
+// P2: the final exponentiation's schedule on f (96 words).
+__global__ void __launch_bounds__(kPairT, 1)
+    pair_final_exp_kernel(const int* __restrict__ sched, const u32* __restrict__ f,
+                          u32* __restrict__ out) {
+  run_schedule(sched, f, nullptr, 0, out);
+}
+
+// Dynamic shared memory above the default 48 KB needs the kernel's opt-in.
+template <class K>
+static int allow_smem(K kernel, int smem) {
+  if (smem <= 48 * 1024) return 0;
+  return (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+}
+
+// ---------------------------------------------------------------------------
+// P3
+// ---------------------------------------------------------------------------
 
 enum F12Op { kMul = 0, kSq = 1, kInv = 2, kFrob = 3, kConj = 4, kMulBy034 = 5 };
 
@@ -384,19 +741,28 @@ __global__ void __launch_bounds__(kPairThreads)
 
 using namespace kt;
 
-extern "C" int kt_pair_miller_loop(const void* flags, const void* coeffs, int n_folds, int n_pairs,
+// P1 and P2 on one block of kPairT threads; smem: the schedule's dynamic
+// shared memory (ops/pairing_schedule.py `smem_bytes`).
+extern "C" int kt_pair_miller_loop(const void* sched, const void* coeffs, int n_lines, int smem,
                                    void* out, void* stream) {
-  pair_miller_loop_kernel<<<1, 32, 0, (cudaStream_t)stream>>>(
-      (const int*)flags, (const u32*)coeffs, n_folds, n_pairs, (u32*)out);
+  const int rc = allow_smem(pair_miller_loop_kernel, smem);
+  if (rc) return rc;
+  pair_miller_loop_kernel<<<1, kPairT, smem, (cudaStream_t)stream>>>(
+      (const int*)sched, (const u32*)coeffs, n_lines, (u32*)out);
   return (int)cudaGetLastError();
 }
 
-extern "C" int kt_pair_final_exp(const void* f, const void* frob, const void* bits, int n_bits,
-                                 void* out, void* stream) {
-  pair_final_exp_kernel<<<1, 32, 0, (cudaStream_t)stream>>>(
-      (const u32*)f, (const u32*)frob, (const int*)bits, n_bits, (u32*)out);
+extern "C" int kt_pair_final_exp(const void* sched, const void* f, int smem, void* out,
+                                 void* stream) {
+  const int rc = allow_smem(pair_final_exp_kernel, smem);
+  if (rc) return rc;
+  pair_final_exp_kernel<<<1, kPairT, smem, (cudaStream_t)stream>>>(
+      (const int*)sched, (const u32*)f, (u32*)out);
   return (int)cudaGetLastError();
 }
+
+// The block size P1 and P2 launch with (this build's kPairT).
+extern "C" int kt_pair_threads() { return kPairT; }
 
 extern "C" int kt_f12_map(int op, const void* a, const void* b, const void* frob, int power,
                           void* out, int n, void* stream) {

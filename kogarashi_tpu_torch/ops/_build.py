@@ -41,7 +41,8 @@ _ED_SIGNATURES = {  # csrc/edwards.cu, per Edwards curve
 }
 _PAIR_SIGNATURES = {  # csrc/pairing.cu
     "kt_pair_miller_loop": [P, P, I, I, P, P],
-    "kt_pair_final_exp": [P, P, P, I, P, P],
+    "kt_pair_final_exp": [P, P, I, P, P],
+    "kt_pair_threads": [],
     "kt_f12_map": [I, P, P, P, I, P, I, P],
 }
 _FIELD_SIGNATURE = [P, P, P, I, I, P]

@@ -7,10 +7,12 @@ Fq12 tower ops (`f12_mul`, `f12_sq`, `f12_inv`, `f12_frobenius`,
 flags (`_FOLD_FLAGS`) and line coefficients (`_encode_prepared`),
 `multi_miller_loop_device`, `final_exp_device` and `pairing_device`. The
 JAX package runs them as XLA programs (no Pallas kernel); here the Miller
-loop (P1) and the final exponentiation (P2) are one launch each, and the
-tower ops one launch over a batch of lanes (P3). As there, the host keeps
-the G2 precompute (`pyref.pairing_fast.G2Prepared`) and the scaling of the
-line coefficients by P's coordinates.
+loop (P1) and the final exponentiation (P2) are one launch each, one block
+of threads (csrc/pairing.cu `kPairT`) running a schedule
+(`pairing_schedule.py`: each tower op as one level of independent Fq
+products), and the tower ops one launch over a batch of lanes (P3). As
+there, the host keeps the G2 precompute (`pyref.pairing_fast.G2Prepared`)
+and the scaling of the line coefficients by P's coordinates.
 
 Layout: an Fq12 is (96, *batch) int32 words, its 12 Fq components in
 `Fq12.to_fq_list` order, 8 Montgomery words each (R = 2^256), canonical in
@@ -34,9 +36,10 @@ from ..devices import resolve
 from ..fields import mont
 from ..fields.spec import FQ
 from ..pyref import Fq, Fq12
-from ..pyref.pairing_fast import HARD_PART_EXP, SIX_U_PLUS_2_NAF, G2Prepared
+from ..pyref.pairing_fast import G2Prepared
 from ..pyref.tower import FROB_FQ6_C1, FROB_FQ6_C2, FROB_FQ12_C1
 from . import _build, ec
+from . import pairing_schedule as schedule
 
 KERNELS = ("pair_miller_loop", "pair_final_exp", "f12_map")
 LAUNCHES: dict = {k: 0 for k in KERNELS}
@@ -249,25 +252,11 @@ def _one_h(shape, device):
 # ---------------------------------------------------------------------------
 
 
-def _fold_structure():
-    """Per fold, whether the accumulator is squared before it: the NAF walk
-    (one fold for the doubling step, squared except the first, and one for
-    a nonzero digit's addition step) and the 2 final folds."""
-    flags = []
-    n = len(SIX_U_PLUS_2_NAF)
-    for i in range(n - 1, 0, -1):
-        flags.append(i != n - 1)
-        if SIX_U_PLUS_2_NAF[i - 1] in (1, -1):
-            flags.append(False)
-    flags += [False, False]
-    return np.asarray(flags, dtype=bool)
-
-
-_FOLD_FLAGS = _fold_structure()
+_FOLD_FLAGS = schedule.fold_flags()
 N_FOLDS = len(_FOLD_FLAGS)
 N_SQUARES = int(_FOLD_FLAGS.sum())
 
-_HARD_BITS = np.asarray([(HARD_PART_EXP >> i) & 1 for i in range(HARD_PART_EXP.bit_length())], dtype=np.int32)
+_HARD_BITS = np.asarray(schedule.HARD_BITS, dtype=np.int32)
 
 
 def _encode_prepared(pairs, device):
@@ -421,17 +410,26 @@ def f12_mul_by_034(a, c):
     return f12_map("mul_by_034", a, c)
 
 
+def _schedule_table(device, sched):
+    return _on(device, f"schedule {sched.name} {sched.n_lines()}", lambda: torch.from_numpy(sched.table))
+
+
+def pair_threads() -> int:
+    """The block size P1 and P2 launch with (csrc/pairing.cu `kPairT`)."""
+    return _build.lib().kt_pair_threads()
+
+
 def miller_loop_coeffs(coeffs):
     """P1 on encoded line coefficients (n_folds, n_pairs, 3, 16) -> (96,)."""
-    if coeffs.dim() != 4 or coeffs.shape[0] != N_FOLDS or coeffs.shape[2:] != (3, 16):
+    if coeffs.dim() != 4 or coeffs.shape[0] != N_FOLDS or coeffs.shape[2:] != (3, 16) or coeffs.shape[1] < 1:
         raise ValueError(f"expected ({N_FOLDS}, n_pairs, 3, 16) words, got {tuple(coeffs.shape)}")
     if not _on_card(coeffs):
         return miller_loop_plain(coeffs)
+    sched = schedule.miller_loop(coeffs.shape[1])
     coeffs = coeffs.contiguous()
-    flags = _on(coeffs.device, "flags", lambda: torch.from_numpy(_FOLD_FLAGS.astype(np.int32)))
     out = torch.empty(96, dtype=torch.int32, device=coeffs.device)
-    _launch("pair_miller_loop", coeffs.device, flags, coeffs, N_FOLDS,
-            coeffs.shape[1], out)
+    _launch("pair_miller_loop", coeffs.device, _schedule_table(coeffs.device, sched), coeffs,
+            sched.n_lines(), sched.smem_bytes(), out)
     return out
 
 
@@ -453,10 +451,9 @@ def final_exp_device(f):
         raise ValueError(f"expected (96,) words, got {tuple(f.shape)}")
     if not _on_card(f):
         return final_exp_plain(f)
-    bits = _on(f.device, "bits", lambda: torch.from_numpy(_HARD_BITS))
+    sched = schedule.final_exp()
     out = torch.empty(96, dtype=torch.int32, device=f.device)
-    _launch("pair_final_exp", f.device, f.contiguous(),
-            frobenius_table(f.device), bits, len(_HARD_BITS), out)
+    _launch("pair_final_exp", f.device, _schedule_table(f.device, sched), f.contiguous(), sched.smem_bytes(), out)
     return out
 
 
@@ -479,8 +476,8 @@ def gt_eq_device(f, target) -> bool:
 # ---------------------------------------------------------------------------
 
 _INV_FQ = 256 + bin(FQ.p - 2).count("1")  # fp_inv: a square per bit, a multiply per set bit
-# Fq multiplies of each tower op as csrc/pairing.cu does them (an Fq2
-# multiply is 3, a square 2)
+# Fq multiplies of each tower op as csrc/pairing.cu's one-thread code (P3, and
+# P1 and P2 before their schedules) does them (an Fq2 multiply is 3, a square 2)
 MULS = {
     "mul": 54, "sq": 36, "mul_by_034": 39, "frobenius": 21, "conj": 0,
     "inv": 36 + (6 + 9 + 9 + 9 + 4 + _INV_FQ) + 36,  # f6 squares, f6_inv, f6 products
@@ -488,8 +485,9 @@ MULS = {
 
 
 def kernel_muls(kernel: str, n_pairs: int = 1, op: str = "mul", lanes: int = 1) -> int:
-    """Fq multiplies of one call: P1 over n_pairs, P2 (the easy part, a
-    square per bit but the last, a multiply per set bit), P3 `op` over lanes."""
+    """Fq multiplies of one call on one thread: P1 over n_pairs, P2 (the easy
+    part, a square per bit but the last, a multiply per set bit), P3 `op`
+    over lanes."""
     if kernel == "pair_miller_loop":
         return N_SQUARES * MULS["sq"] + N_FOLDS * n_pairs * MULS["mul_by_034"]
     if kernel == "pair_final_exp":
@@ -498,13 +496,25 @@ def kernel_muls(kernel: str, n_pairs: int = 1, op: str = "mul", lanes: int = 1) 
     return MULS[op] * lanes
 
 
+def _schedule(kernel: str, n_pairs: int = 1):
+    return schedule.miller_loop(n_pairs) if kernel == "pair_miller_loop" else schedule.final_exp()
+
+
+def schedule_muls(kernel: str, n_pairs: int = 1) -> int:
+    """Fq multiplies P1's or P2's schedule makes: its products, plus each
+    Fermat inverse's chain."""
+    sched = _schedule(kernel, n_pairs)
+    return sched.products() + sched.depth()[1] * _INV_FQ
+
+
 def bound_ms(kernel: str, sm_clock_hz: float, n_pairs: int = 1, op: str = "mul", lanes: int = 1):
     """(ms, "operations" | "bytes"): the larger of the time for the 32-bit
     multiply-adds (ec.MULADD_PER_MUL per Fq multiply, at 64 per SM per clock
-    on 132 SMs) and the time to read each input and write each output once
+    on 132 SMs; P1's and P2's multiplies are their schedules', P3's
+    `kernel_muls`) and the time to read each input and write each output once
     at 3.35 TB/s. P1 reads its flags and coefficients, P2 its Fq12, the
     frobenius table and the exponent's bits, P3 its operands."""
-    muls = kernel_muls(kernel, n_pairs, op, lanes)
+    muls = kernel_muls(kernel, op=op, lanes=lanes) if kernel == "f12_map" else schedule_muls(kernel, n_pairs)
     t_ops = muls * ec.MULADD_PER_MUL / (ec.H100_SMS * ec.MULADD_PER_SM_CLOCK * sm_clock_hz) * 1e3
     fq12 = 96 * 4
     if kernel == "pair_miller_loop":
@@ -518,8 +528,26 @@ def bound_ms(kernel: str, sm_clock_hz: float, n_pairs: int = 1, op: str = "mul",
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
-def floor_ms(kernel: str, mul_cycles: float, sm_clock_hz: float, launch_ms: float, n_pairs: int = 1):
-    """P1's or P2's critical-path floor on its one thread: each Fq multiply
+def one_thread_floor_ms(kernel: str, mul_cycles: float, sm_clock_hz: float, launch_ms: float,
+                        n_pairs: int = 1):
+    """P1's or P2's critical-path floor on one thread: each Fq multiply
     after the one before, at `mul_cycles` (one dependent multiply through
-    fp_mul_call, csrc/imad_probe.cu), plus an empty launch."""
+    fp_mul_call, csrc/imad_probe.cu), plus an empty launch. No design that
+    runs the product on one thread can beat it."""
     return kernel_muls(kernel, n_pairs) * mul_cycles / sm_clock_hz * 1e3 + launch_ms
+
+
+def depth_levels(kernel: str, n_pairs: int = 1) -> tuple:
+    """(levels of products, Fermat inverses) P1's or P2's schedule runs one
+    after another."""
+    return _schedule(kernel, n_pairs).depth()
+
+
+def depth_floor_ms(kernel: str, mul_cycles: float, call_cycles: float, sm_clock_hz: float,
+                   launch_ms: float, n_pairs: int = 1):
+    """P1's or P2's critical-path floor on a block: its schedule's levels,
+    each at least one dependent inline multiply (`mul_cycles`), plus each
+    Fermat inverse's chain on one thread (_INV_FQ multiplies through
+    fp_mul_call, `call_cycles` each), plus an empty launch."""
+    levels, inverses = depth_levels(kernel, n_pairs)
+    return (levels * mul_cycles + inverses * _INV_FQ * call_cycles) / sm_clock_hz * 1e3 + launch_ms

@@ -16,6 +16,7 @@ from kogarashi_tpu_torch.fields.spec import BLS_FR, FQ, FR, MONT_R, ints_to_limb
 from kogarashi_tpu_torch.ops import ec
 from kogarashi_tpu_torch.ops.fixed_base import fixed_base_mul
 from kogarashi_tpu_torch.ops.msm import msm
+from torch_verify_equation import verify_equation_pairs
 
 pytestmark = pytest.mark.cuda
 
@@ -299,24 +300,43 @@ def test_f12_map_matches_plain(dev, op):
 
 
 def test_miller_loop_and_final_exp_match_plain(dev):
-    """P1 on one pair and on three (identity pairs skipped), P2 on their
-    results: equal to their plain versions on the card and to the host's
-    multi_miller_loop and final_exp_fast; pairing_device(a G1, G2) equals
-    pairing_fast."""
+    """P1 at 1, 2, 3 and 5 pairs (identity pairs skipped) against its plain
+    version on the card and the host's multi_miller_loop; P2 against its
+    plain version on the verify equation's Miller value (-> alpha_g1_beta_g2),
+    on one (-> one), on zero (-> zero: fp_inv maps 0 to 0) and on a seeded
+    Fq12 outside Gt; each call adds exactly one to its kernel's launch count;
+    pairing_device(a G1, G2) equals pairing_fast."""
     from kogarashi_tpu_torch import pyref
     from kogarashi_tpu_torch.ops import pairing as P
     from kogarashi_tpu_torch.pyref.pairing_fast import G2Prepared, final_exp_fast, multi_miller_loop, pairing_fast
 
+    def counted(kernel, fn, *args):
+        before = P.LAUNCHES[kernel]
+        out = fn(*args)
+        torch.cuda.synchronize()
+        assert P.LAUNCHES[kernel] == before + 1, kernel
+        return out
+
     g1, g2 = pyref.G1_SPEC.generator, pyref.G2_SPEC.generator
     inf = pyref.G1_SPEC.identity_affine()
-    for ks in ([(5, 7)], [(11, 13), (17, 19), (23, 29)]):
-        pairs = [(a * g1, G2Prepared.from_affine(b * g2)) for a, b in ks] + [(inf, G2Prepared.from_affine(g2))]
-        ml = P.multi_miller_loop_device(pairs, dev)
-        assert torch.equal(ml, P.miller_loop_plain(P._encode_prepared(pairs[:-1], dev)))
-        assert P.decode_fq12(ml) == multi_miller_loop(pairs)
-        fe = P.final_exp_device(ml)
-        assert torch.equal(fe, P.final_exp_plain(ml))
-        assert P.decode_fq12(fe) == final_exp_fast(multi_miller_loop(pairs))
+    ks = [(5, 7), (11, 13), (17, 19), (23, 29), (31, 37)]
+    for n in (1, 2, 3, 5):
+        pairs = [(a * g1, G2Prepared.from_affine(b * g2)) for a, b in ks[:n]] + [(inf, G2Prepared.from_affine(g2))]
+        ml = counted("pair_miller_loop", P.multi_miller_loop_device, pairs, dev)
+        assert torch.equal(ml, P.miller_loop_plain(P._encode_prepared(pairs[:-1], dev))), n
+        assert P.decode_fq12(ml) == multi_miller_loop(pairs), n
+    pairs, pvk = verify_equation_pairs()
+    ml = counted("pair_miller_loop", P.multi_miller_loop_device, pairs, dev)
+    assert P.decode_fq12(ml) == multi_miller_loop(pairs)
+    rng = np.random.default_rng(8)
+    outside = pyref.Fq12.from_fq_list([pyref.Fq(int.from_bytes(rng.bytes(32), "little") % FQ.p) for _ in range(12)])
+    assert outside * outside.conjugate() != pyref.Fq12.one()
+    zero = torch.zeros(96, dtype=torch.int32, device=dev)
+    for f, want in ((ml, pvk.alpha_g1_beta_g2), (P.f12_one_words(dev), pyref.Fq12.one()), (zero, None),
+                    (P.encode_fq12(outside, dev), final_exp_fast(outside))):
+        fe = counted("pair_final_exp", P.final_exp_device, f)
+        assert torch.equal(fe, P.final_exp_plain(f))
+        assert torch.equal(fe, zero) if want is None else P.decode_fq12(fe) == want
     a = random.Random(3).randrange(1, FR.p)
     assert P.decode_fq12(P.pairing_device(a * g1, g2, dev)) == pairing_fast(a * g1, g2)
 

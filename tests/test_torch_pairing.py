@@ -20,10 +20,10 @@ from kogarashi_tpu.ops import pairing as jp
 from kogarashi_tpu.pyref import pairing_fast as jpf
 from kogarashi_tpu_torch import constants as C
 from kogarashi_tpu_torch import interop, pyref
-from kogarashi_tpu_torch.groth16 import Proof, VerifyingKey
 from kogarashi_tpu_torch.ops import pairing as P
 from kogarashi_tpu_torch.pyref import Fq, Fq12
 from kogarashi_tpu_torch.pyref.pairing_fast import G2Prepared, final_exp_fast, multi_miller_loop
+from torch_verify_equation import trapdoor_proof
 
 torch.set_num_threads(2)  # the suite runs several workers side by side
 
@@ -68,15 +68,7 @@ def test_fold_flags_and_prepared_match_jax():
 def groth16():
     """A Groth16 key and proof made with the key's trapdoor: c = (ab -
     alpha beta - gamma acc) / delta, for public inputs x; its prepared key."""
-    r, rng = C.R, random.Random(6)
-    g1, g2 = pyref.G1_SPEC.generator, pyref.G2_SPEC.generator
-    alpha, beta, gamma, delta, a, b = (rng.randrange(1, r) for _ in range(6))
-    ic = [rng.randrange(1, r) for _ in range(3)]
-    x = [rng.randrange(r) for _ in range(2)]
-    vk = VerifyingKey(alpha * g1, beta * g1, beta * g2, gamma * g2, delta * g1, delta * g2, [s * g1 for s in ic])
-    acc = (ic[0] + sum(xi * s for xi, s in zip(x, ic[1:]))) % r
-    c = (a * b - alpha * beta - gamma * acc) * pow(delta, -1, r) % r
-    return Proof(a=a * g1, b=b * g2, c=c * g1), x, vk.prepare()
+    return trapdoor_proof()
 
 
 @pytest.fixture(scope="module")
