@@ -43,12 +43,14 @@ with the card's name and power limit beside it:
            2048 lanes and at 16384 (eight tiles of the 2048, each held to the
            plain result; the plain version timed at both), edge scalars
            among them; timed on the device beside `ops/edwards.py::bound_ms`,
-           E1 also beside its critical-path floor
+           E1 and E2 at 1024 lanes also beside a critical-path floor; E1 and
+           E2 with the lane group g `ops/ec.py::lane_group` picks
   signature  RedDSA over Jubjub: 1024 signatures (64 keys, 32-byte messages,
            random.Random(SIG_SEED)), three of them bad (S + 1, a changed
            message, R bytes that do not decompress); `batch_verify` on the
            card equals the host verify on every lane, exactly those three
-           rejected; E1-E3 must each have launched in that run; then timed at
+           rejected; E1-E3 must each have launched in that run, E1 and E2
+           at the lane group the rule picks for its shape; then timed at
            1024 and 8192 signatures (the 1024 tiled) with its split (host
            hashing and decompression, encode, E1, the combine, decode), beside
            the host verify's time per signature
@@ -79,7 +81,8 @@ with the card's name and power limit beside it:
            pairing's seconds, with the build's registers, stack and spills;
            P3 at 2^16 lanes, every op
            (mul, sq, inv, frobenius, conj, mul_by_034), held to its plain
-           version and timed beside its bound
+           version and timed beside its bound, and mul and conj at the one
+           lane `gt_eq_device` launches them on
   nova     Nova IVC at the fixture's full size (`phase_nova`): the 3-step
            chain under the reference seed verifies, rejects a tampered z_i,
            and its proof's sha256 is the JAX package's; every Grumpkin and G1
@@ -99,11 +102,12 @@ Grumpkin, the 1024-signature batch_verify's for E1-E3, the verify
 equation's for P1-P3), path, launches_by_path (for G1's also the
 distributed path's, counted inside rank 0), max_abs_err, ms, plain_ms,
 bound_ms, bound_by, bound_share, library_ms, shape, times, g for K2 and K4,
-their other shapes, for K2 and K4 launches_by_g, for K2 msm_sum_ms and
-msm_sum_bound_ms, for K4 at one lane and E1 floor_ms, for P1 and P2
+their other shapes, for K2, K4, E1 and E2 launches_by_g (E1 and E2 also
+g), for K2 msm_sum_ms and msm_sum_bound_ms, for K4 at one lane, E1 and E2
+at 1024 lanes floor_ms, for P1 and P2
 threads, one_thread_floor_ms, depth_floor_ms and its share,
 levels, the build's registers and the host's seconds, for P3 its other
-ops), the card, and {"ok": true, "device": {...}}. Without a CUDA device it
+ops and one_lane), the card, and {"ok": true, "device": {...}}. Without a CUDA device it
 exits non-zero.
 """
 
@@ -521,28 +525,6 @@ def phase_curves(dev, card) -> dict:
     return launches
 
 
-def jubjub_lanes(n: int, seed: int, dev):
-    """n Jubjub points (one in eight the identity, the rest random) with a
-    random Z each, and n scalars: the edge scalars (0, 1, order - 1, order,
-    2^256 - 1, p - 1), then random 256-bit values."""
-    import torch
-
-    from kogarashi_tpu_torch.curves.edwards import JUBJUB
-    from kogarashi_tpu_torch.fields import mont
-    from kogarashi_tpu_torch.fields.spec import BLS_FR, ints_to_limbs16
-
-    rng = random.Random(seed)
-    g = JUBJUB.pyref_spec.generator.to_extended()
-    base = [(rng.randrange(1, JUBJUB.order) * g).to_affine() for _ in range(63)] + [
-        JUBJUB.pyref_spec.identity_affine()]
-    p = JUBJUB.encode_points([base[i % 64] for i in range(n)], dev)
-    z = torch.from_numpy(BLS_FR.encode([rng.randrange(1, BLS_FR.p) for _ in range(n)])).to(dev)
-    p = tuple(mont.mul(c, z, spec=BLS_FR) for c in p)
-    ks = [0, 1, JUBJUB.order - 1, JUBJUB.order, (1 << 256) - 1, BLS_FR.p - 1]
-    ks += [rng.randrange(1 << 256) for _ in range(n - len(ks))]
-    return p, torch.from_numpy(ints_to_limbs16(ks)).to(dev)
-
-
 def phase_edwards(dev, card) -> dict:
     """E1-E3 exactly against their plain versions and timed on the device
     beside `ops/edwards.py::bound_ms` (at the SM clock under load). E1 at
@@ -551,12 +533,15 @@ def phase_edwards(dev, card) -> dict:
     the plain version timed at both, with its critical-path floor
     (LADDER_LEVELS x 256 x one dependent multiply's cycles, csrc/
     imad_probe.cu, + an empty launch); E2 (p - q, the path's form) and E3
-    (t = 3) at 2^16 lanes and at the path's 1024."""
+    (t = 3) at 2^16 lanes and at the paths' 1024 and 8192, E2 at 1024 beside
+    its floor (ADD_LEVELS x one dependent multiply + an empty launch). E1 and
+    E2 run at the lane group `ec.lane_group` picks (logged as g)."""
     import torch
 
     from kogarashi_tpu_torch.curves.edwards import JUBJUB
     from kogarashi_tpu_torch.ops import ec
     from kogarashi_tpu_torch.ops import edwards as E
+    from kogarashi_tpu_torch.profile_edwards import jubjub_lanes
 
     mul_cycles = ec.mul_latency_cycles(dev, call=False)
     launch_ms = ec.empty_launch_ms(dev)
@@ -579,15 +564,16 @@ def phase_edwards(dev, card) -> dict:
         ms = cuda_ms(lambda: E.scalar_mul(JUBJUB, pp, kk), reps=5)
         bound, by = E.bound_ms("ed_scalar_mul", lanes, clock, base_lanes=lanes)
         floor = E.LADDER_LEVELS * 256 * mul_cycles / clock * 1e3 + launch_ms
-        runs["ed_scalar_mul"].append(dict(shape=[8, lanes], times=1, max_abs_err=err, ms=ms,
-                                          plain_ms=plain_ms[lanes], bound_ms=bound,
-                                          bound_by=by, bound_share=bound / ms, floor_ms=floor))
-        log("edwards", f"ed_scalar_mul (8, {lanes}): exact (edge scalars among them); kernel {ms:.4f} ms, bound "
-                       f"{bound:.4f} ms ({by}), share {bound / ms:.3f}, critical-path floor {floor:.4f} ms "
+        g = ec.lane_group("ed_scalar_mul", JUBJUB, lanes)
+        runs["ed_scalar_mul"].append(dict(shape=[8, lanes], times=1, g=g, max_abs_err=err, ms=ms,
+                                          plain_ms=plain_ms[lanes], bound_ms=bound, bound_by=by,
+                                          bound_share=bound / ms, floor_ms=floor))
+        log("edwards", f"ed_scalar_mul (8, {lanes}) g={g}: exact (edge scalars among them); kernel {ms:.4f} ms, "
+                       f"bound {bound:.4f} ms ({by}), share {bound / ms:.3f}, critical-path floor {floor:.4f} ms "
                        f"({E.LADDER_LEVELS} levels x 256 bits x {mul_cycles:.1f} cycles + a launch)"
                        f", plain {plain_ms[lanes]:.1f} ms ({card})")
     del p16, k16, want
-    for lanes in (ED_MAP_LANES, SIG_N):
+    for lanes in (ED_MAP_LANES, SIG_N, SIG_N * SIG_TILES):
         a, _ = jubjub_lanes(lanes, 12, dev)
         b = tuple(c.roll(1, dims=1).contiguous() for c in a)
         cases = (("ed_map_add", 1, lambda: E.map_add(JUBJUB, a, b, neg=True),
@@ -602,10 +588,19 @@ def phase_edwards(dev, card) -> dict:
                 raise AssertionError(f"{kname} at {lanes} lanes: kernel differs from the plain version")
             ms = cuda_ms(kern, reps=20)
             bound, by = E.bound_ms(kname, lanes, clock, times=times)
-            runs[kname].append(dict(shape=[8, lanes], times=times, max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                                    bound_ms=bound, bound_by=by, bound_share=bound / ms))
-            log("edwards", f"{kname} (8, {lanes}) t={times}: exact; kernel {ms:.4f} ms, bound {bound:.4f} ms "
-                           f"({by}), share {bound / ms:.3f}, plain {plain_ms:.3f} ms ({card})")
+            rec = dict(shape=[8, lanes], times=times, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                       bound_ms=bound, bound_by=by, bound_share=bound / ms)
+            extra = ""
+            if kname == "ed_map_add":
+                rec["g"] = ec.lane_group(kname, JUBJUB, lanes)
+                extra = f" g={rec['g']}"
+                if lanes == SIG_N:
+                    rec["floor_ms"] = E.ADD_LEVELS * mul_cycles / clock * 1e3 + launch_ms
+                    extra += (f", critical-path floor {rec['floor_ms']:.5f} ms ({E.ADD_LEVELS} levels x "
+                              f"{mul_cycles:.1f} cycles + a launch)")
+            runs[kname].append(rec)
+            log("edwards", f"{kname} (8, {lanes}) t={times}: exact; kernel {ms:.4f} ms, bound {bound:.5f} ms "
+                           f"({by}), share {bound / ms:.3f}, plain {plain_ms:.3f} ms;{extra} ({card})")
     for kname, measured in runs.items():
         record[f"{kname}_jubjub"] = dict(measured[0], library_ms=None, other_shapes=measured[1:])
     return record
@@ -636,15 +631,34 @@ class StageLog(logging.Handler):
         self.stages.append((stage, seconds))
 
 
+def ed_groups() -> dict:
+    """E1's and E2's launches by lane group since the last reset."""
+    from kogarashi_tpu_torch.ops import ec
+
+    return {k: dict(v) for k, v in ec.GROUP_LAUNCHES.items() if k.startswith("ed_")}
+
+
+def missing_groups(n: int, by_group: dict) -> list:
+    """E1 and E2 of a batch_verify over n signatures (E1 on 2n lanes, E2 on
+    n) that did not launch at the lane group the rule picks."""
+    from kogarashi_tpu_torch.curves.edwards import JUBJUB
+    from kogarashi_tpu_torch.ops import ec
+
+    path_g = {k: ec.lane_group(k, JUBJUB, lanes) for k, lanes in (("ed_scalar_mul", 2 * n), ("ed_map_add", n))}
+    return [f"{k} g={g}" for k, g in path_g.items() if by_group.get(f"{k}_jubjub", {}).get(g, 0) <= 0]
+
+
 def phase_signature(dev, card) -> dict:
     """RedDSA batch verification over Jubjub on the card. 1024 signatures
     from random.Random(SIG_SEED): 64 keys, 32-byte messages; the lanes of
     SIG_BAD made bad. The host verify runs on every lane (its time per
     signature logged); `batch_verify` on the card must equal it on every
     lane and reject exactly SIG_BAD. The launch counters are read over that
-    first call: E1-E3 must each have launched. Then 1024 and 8192 signatures
-    (the 1024 tiled) are timed with their split (`stages.Stages` in
-    `signature/reddsa.py`, each stage ended by a device synchronisation)."""
+    first call: E1-E3 must each have launched, E1 and E2 at the lane groups
+    the rule picks. Then 1024 and 8192 signatures (the 1024 tiled) are timed
+    with their split (`stages.Stages` in `signature/reddsa.py`, each stage
+    ended by a device synchronisation), each run held to the host verify and
+    to having launched E1 and E2 at its own lane groups."""
     from kogarashi_tpu_torch.ops import edwards as E
     from kogarashi_tpu_torch.pyref import JUBJUB_SPEC
     from kogarashi_tpu_torch.signature import RedDSA, Signature, batch_verify
@@ -674,30 +688,35 @@ def phase_signature(dev, card) -> dict:
     got = batch_verify(vks, msgs, sigs, device=dev)
     t_first = time.perf_counter() - t0
     launches = dict(E.LAUNCHES)
+    by_group = ed_groups()
     if got != host:
         raise AssertionError(f"signature: batch_verify differs from the host verify at "
                              f"{[i for i, (a, b) in enumerate(zip(got, host)) if a != b]}")
-    missing = [k for k, v in launches.items() if v <= 0]
+    missing = [k for k, v in launches.items() if v <= 0] + missing_groups(SIG_N, by_group)
     if missing:
         raise AssertionError(f"kernels not launched on the signature path: {missing}")
     log("signature", f"{SIG_N} signatures over {SIG_KEYS} keys (signed on the host in {t_sign:.3f} s): "
                      f"batch_verify on the card equals the host verify on every lane, rejecting exactly "
                      f"{bad} ({', '.join(SIG_BAD[i] for i in bad)}); first call {t_first:.3f} s; host verify "
                      f"{t_host * 1e3:.3f} ms per signature ({card})")
-    log("signature", f"launches: {json.dumps(launches)}")
+    log("signature", f"launches: {json.dumps(launches)}; E1 and E2 by lane group g: {json.dumps(by_group)}")
     for tiles in (1, SIG_TILES):
         n = SIG_N * tiles
+        E.reset_launches()
         with StageLog("kogarashi_tpu_torch.signature.reddsa") as st:
             t0 = time.perf_counter()
             got = batch_verify(vks * tiles, msgs * tiles, sigs * tiles, device=dev)
             total = time.perf_counter() - t0
         if got != host * tiles:
             raise AssertionError(f"signature: batch_verify at {n} signatures differs from the host verify")
+        missing = missing_groups(n, ed_groups())
+        if missing:
+            raise AssertionError(f"signature: at {n} signatures, not launched: {missing}")
         split = ", ".join(f"{k} {v:.4f}" for k, v in st.stages)
         log("signature", f"batch_verify at {n} signatures: {total:.4f} s, {n / total:.1f} signatures/s "
                          f"({total / n * 1e3:.4f} ms each; host verify {t_host * 1e3:.3f} ms each); split, s: "
-                         f"{split} ({card})")
-    return launches
+                         f"{split}; E1 and E2 by lane group g: {json.dumps(ed_groups())} ({card})")
+    return launches, by_group
 
 
 def random_fq12_words(n: int, seed: int, dev, rows: int = 96):
@@ -828,7 +847,23 @@ def phase_pairing(dev, card: str, proof, inputs, pvk) -> tuple:
                        bound_by=by, bound_share=bound / ms)
         log("pairing", f"f12_map {op} (96, {P3_LANES}){' power 3' if power else ''}: exact; kernel {ms:.4f} ms, "
                        f"bound {bound:.4f} ms ({by}), share {bound / ms:.3f}, plain {plain_ms:.2f} ms ({card})")
-    record["f12_map"] = dict(ops["mul"], op="mul", other_ops={k: v for k, v in ops.items() if k != "mul"})
+    one_lane = {}
+    for op in ("mul", "conj"):  # gt_eq_device's two launches, at its one lane
+        a1, b1 = a[:, :1].contiguous(), b[:, :1].contiguous()
+        second = b1 if op == "mul" else None
+        want = P.map_plain(op, a1, second, 0)
+        got = P.f12_map(op, a1, second, 0)
+        err = max_abs_err((got,), (want,))
+        if err:
+            raise AssertionError(f"f12_map {op} at one lane: kernel differs from the plain version")
+        ms = cuda_ms(lambda: P.f12_map(op, a1, second, 0), reps=20)
+        bound, by = P.bound_ms("f12_map", clock, op=op, lanes=1)
+        one_lane[op] = dict(shape=[96, 1], max_abs_err=err, ms=ms, bound_ms=bound, bound_by=by,
+                            bound_share=bound / ms)
+        log("pairing", f"f12_map {op} (96, 1), as gt_eq_device launches it: exact; kernel {ms:.5f} ms, bound "
+                       f"{bound:.7f} ms ({by}), share {bound / ms:.5f}; an empty launch {launch_ms:.5f} ms ({card})")
+    record["f12_map"] = dict(ops["mul"], op="mul", other_ops={k: v for k, v in ops.items() if k != "mul"},
+                             one_lane=one_lane)
     return launches, record
 
 
@@ -1150,7 +1185,7 @@ def main() -> int:
     record = phase_ec(dev, card, LOG2_MSM, windows=16, k2_launches=k2_launches)
     phase_curves(dev, card)
     ed_record = phase_edwards(dev, card)
-    sig_launches = phase_signature(dev, card)
+    sig_launches, sig_by_group = phase_signature(dev, card)
     g16_launches, g16_by_group, (proof, inputs, pvk) = phase_groth16(dev, card, LOG2_CONSTRAINTS)
     dist_launches = phase_distributed(card, g1_msm_s)
     pair_launches, pair_record = phase_pairing(dev, card, proof, inputs, pvk)
@@ -1170,9 +1205,12 @@ def main() -> int:
             entry["launches_by_g"] = by_group[key]
         kernels.append(entry)
     for key, rec in ed_record.items():
-        kernels.append(dict(name=key, route="cuda", source=ED_SOURCE, replaces=ED_REPLACES[key.rsplit("_", 1)[0]],
-                            launches=sig_launches[key], path="signature",
-                            launches_by_path={"signature": sig_launches[key]}, **rec))
+        entry = dict(name=key, route="cuda", source=ED_SOURCE, replaces=ED_REPLACES[key.rsplit("_", 1)[0]],
+                     launches=sig_launches[key], path="signature",
+                     launches_by_path={"signature": sig_launches[key]}, **rec)
+        if key in sig_by_group:
+            entry["launches_by_g"] = sig_by_group[key]
+        kernels.append(entry)
     for key, rec in pair_record.items():
         kernels.append(dict(name=key, route="cuda", source=PAIR_SOURCE, replaces=PAIR_REPLACES[key],
                             launches=pair_launches[key], path="groth16_verify",

@@ -76,8 +76,9 @@
 //     (G2) one multiply's dependent latency (csrc/imad_probe.cu): the adds
 //     between levels and the exchange take the rest.
 //
-// Lane groups (K2, K4): one lane's point op on g threads of one warp, one
-// dependency level at a time. The level's independent base-field products
+// Lane groups (K2, K4; the level and exchange are csrc/lane_group.cuh's,
+// shared with csrc/edwards.cu): one lane's point op on g threads of one warp,
+// one dependency level at a time. The level's independent base-field products
 // (an Fq2 multiply is three, a square two) are dealt out over the group; the
 // adds between levels run redundantly on each thread. G1 exchanges the
 // products by __shfl_sync (at most 6 a level), G2 through shared memory (up
@@ -91,6 +92,7 @@
 #include <cuda_runtime.h>
 
 #include "field.cuh"
+#include "lane_group.cuh"
 
 namespace kt {
 
@@ -387,158 +389,9 @@ __global__ void __launch_bounds__(kThreads, Cv::kMinBlocks)
 }
 
 // ---------------------------------------------------------------------------
-// Lane groups: K2 and K4 where one thread per lane leaves the card idle. One
-// lane's point op runs on G threads of one warp (G divides 32), one
-// dependency level of multiplies at a time: the level's independent base-field
-// products are dealt out over the group (thread `rank` takes products rank,
-// rank + G, ...), and every thread of the group receives all of them, by
-// `__shfl_sync` (G1) or through shared memory (G2), before the next level.
-// The adds between levels run redundantly on every thread. Every field op is
-// canonical, so the result is the one-thread kernel's, word for word.
+// Lane groups (lane_group.cuh): K2 and K4 where one thread per lane leaves
+// the card idle.
 // ---------------------------------------------------------------------------
-
-// An algebra multiply as base-field products. Alg1: one. Alg2: Karatsuba's
-// three, or two for a square, in Alg2::mul's and Alg2::sqr's formulas.
-template <class A>
-struct Parts;
-
-template <class F>
-struct Parts<Alg1<F>> {
-  typedef Elem<8> E;
-  static constexpr int kMul = 1, kSqr = 1;
-  __device__ __forceinline__ static Elem<8> bmul(const Elem<8>& a, const Elem<8>& b) {
-    Elem<8> r;
-    fp_mul<F>(r.v, a.v, b.v);
-    return r;
-  }
-  __device__ __forceinline__ static void mul_in(Elem<8>* a, Elem<8>* b, const E& x, const E& y) {
-    a[0] = x;
-    b[0] = y;
-  }
-  __device__ __forceinline__ static void sqr_in(Elem<8>* a, Elem<8>* b, const E& x) {
-    mul_in(a, b, x, x);
-  }
-  __device__ __forceinline__ static E mul_out(const Elem<8>* m) { return m[0]; }
-  __device__ __forceinline__ static E sqr_out(const Elem<8>* m) { return m[0]; }
-  // words k with k % G == rank of e, to word planes a[k * plane + off]
-  template <int G, class I>
-  __device__ __forceinline__ static void store(u32* __restrict__ a, I plane, I off, const E& e,
-                                               int rank) {
-#pragma unroll
-    for (int k = 0; k < 8; k++)
-      if (k % G == rank) a[k * plane + off] = e.v[k];
-  }
-};
-
-template <class F>
-struct Parts<Alg2<F>> {
-  typedef Alg1<F> B;
-  typedef typename Alg2<F>::E E;
-  static constexpr int kMul = 3, kSqr = 2;
-  __device__ __forceinline__ static Elem<8> bmul(const Elem<8>& a, const Elem<8>& b) {
-    return fp_mul_call<F>(a, b);
-  }
-  __device__ __forceinline__ static void mul_in(Elem<8>* a, Elem<8>* b, const E& x, const E& y) {
-    a[0] = x.c0;
-    b[0] = y.c0;
-    a[1] = x.c1;
-    b[1] = y.c1;
-    a[2] = B::add(x.c0, x.c1);
-    b[2] = B::add(y.c0, y.c1);
-  }
-  __device__ __forceinline__ static void sqr_in(Elem<8>* a, Elem<8>* b, const E& x) {
-    a[0] = x.c0;
-    b[0] = x.c1;
-    a[1] = B::add(x.c0, x.c1);
-    b[1] = B::sub(x.c0, x.c1);
-  }
-  __device__ __forceinline__ static E mul_out(const Elem<8>* m) {
-    E r;
-    r.c0 = B::sub(m[0], m[1]);
-    r.c1 = B::sub(B::sub(m[2], m[0]), m[1]);
-    return r;
-  }
-  __device__ __forceinline__ static E sqr_out(const Elem<8>* m) {
-    E r;
-    r.c0 = m[1];
-    r.c1 = B::add(m[0], m[0]);
-    return r;
-  }
-  template <int G, class I>
-  __device__ __forceinline__ static void store(u32* __restrict__ a, I plane, I off, const E& e,
-                                               int rank) {
-#pragma unroll
-    for (int k = 0; k < 8; k++) {
-      if (k % G == rank) a[k * plane + off] = e.c0.v[k];
-      if ((k + 8) % G == rank) a[(k + 8) * plane + off] = e.c1.v[k];
-    }
-  }
-};
-
-// A thread's place in its lane's group: its rank, and the group's slots in
-// its warp's exchange buffer in shared memory, laid out [product][group of
-// the warp][2 x uint4], so product k of the group is ex[k * kStride], two
-// 16-byte words. S: exchange by __shfl_sync instead.
-template <int G, bool S>
-struct Group {
-  static constexpr int kStride = 2 * (32 / G);
-  int rank;
-  uint4* ex;
-};
-
-// One level: products m[k] = a[k] * b[k], k < N, on a group of G threads.
-// Thread `rank` selects its operands (word by word, no divergence) and makes
-// one multiply per round; each product goes to the exchange buffer as it is
-// made, and every thread of the group reads all N back.
-template <class A, int G, bool S, int N>
-__device__ __forceinline__ void level(Elem<8> (&m)[N], const Elem<8> (&a)[N],
-                                      const Elem<8> (&b)[N], const Group<G, S>& g) {
-  constexpr int R = (N + G - 1) / G;
-  auto mul = [&](int r) {
-    Elem<8> x = a[r * G], y = b[r * G];
-#pragma unroll
-    for (int j = 1; j < G; j++) {
-      const int k = r * G + j;
-      if (k < N) {
-        const bool take = g.rank == j;
-#pragma unroll
-        for (int w = 0; w < 8; w++) {
-          x.v[w] = take ? a[k].v[w] : x.v[w];
-          y.v[w] = take ? b[k].v[w] : y.v[w];
-        }
-      }
-    }
-    return Parts<A>::bmul(x, y);
-  };
-  if constexpr (S) {
-    Elem<8> mine[R];
-#pragma unroll
-    for (int r = 0; r < R; r++) mine[r] = mul(r);
-#pragma unroll
-    for (int k = 0; k < N; k++)
-#pragma unroll
-      for (int w = 0; w < 8; w++)
-        m[k].v[w] = __shfl_sync(0xffffffffu, mine[k / G].v[w], k % G, G);
-  } else {
-    __syncwarp();  // the group has read the previous level's products
-#pragma unroll
-    for (int r = 0; r < R; r++) {
-      const Elem<8> mine = mul(r);
-      const int k = r * G + g.rank;
-      if (k < N) {
-        uint4* s = g.ex + k * Group<G, S>::kStride;
-        s[0] = make_uint4(mine.v[0], mine.v[1], mine.v[2], mine.v[3]);
-        s[1] = make_uint4(mine.v[4], mine.v[5], mine.v[6], mine.v[7]);
-      }
-    }
-    __syncwarp();
-#pragma unroll
-    for (int k = 0; k < N; k++) {
-      const uint4 lo = g.ex[k * Group<G, S>::kStride], hi = g.ex[k * Group<G, S>::kStride + 1];
-      m[k] = Elem<8>{{lo.x, lo.y, lo.z, lo.w, hi.x, hi.y, hi.z, hi.w}};
-    }
-  }
-}
 
 // RCB16 Alg 7 on a group: G1 in 2 levels of 6 multiplies (its b3 products
 // are adds), G2 in 3 of 18, 6 and 18 base multiplies.
@@ -651,25 +504,6 @@ struct MaxProducts {
   static constexpr int kPadd = 6 * P::kMul, kPdouble = 2 * P::kSqr + 2 * P::kMul;
 };
 
-// The lane of thread t, and its place in the lane's group. A warp whose
-// lanes all lie at or past C returns at once; in any other warp every thread
-// stays through the exchanges, those past C on lane C - 1's words, and
-// stores nothing. `ex`: the warp's exchange buffer.
-template <int G, bool S>
-struct GroupLane {
-  int lane, c;
-  bool warp_idle;
-  Group<G, S> grp;
-  __device__ __forceinline__ GroupLane(int C, uint4* ex) {
-    const int t = blockIdx.x * kThreads + threadIdx.x;
-    lane = t / G;
-    c = lane < C ? lane : C - 1;
-    warp_idle = (t & ~31) / G >= C;
-    grp.rank = t % G;
-    grp.ex = ex + 2 * ((threadIdx.x % 32) / G);
-  }
-};
-
 // K2 on lane groups.
 template <class Cv, int G>
 __global__ void __launch_bounds__(kThreads, Cv::kScanMinBlocks)
@@ -680,7 +514,7 @@ __global__ void __launch_bounds__(kThreads, Cv::kScanMinBlocks)
   typedef Parts<A> P;
   constexpr bool S = Cv::kShuffle;  // no exchange buffer then
   __shared__ uint4 ex[kThreads / 32][S ? 1 : MaxProducts<Cv>::kPadd * Group<G, S>::kStride];
-  const GroupLane<G, S> g(C, ex[threadIdx.x / 32]);
+  const GroupLane<G, S, kThreads> g(C, ex[threadIdx.x / 32]);
   if (g.warp_idle) return;
   typedef typename Cv::ScanIndex I;
   const I plane = (I)L * C;
@@ -710,7 +544,7 @@ __global__ void __launch_bounds__(kThreads, 1)
   typedef Parts<A> P;
   constexpr bool S = Cv::kShuffle;  // no exchange buffer then
   __shared__ uint4 ex[kThreads / 32][S ? 1 : MaxProducts<Cv>::kPdouble * Group<G, S>::kStride];
-  const GroupLane<G, S> g(C, ex[threadIdx.x / 32]);
+  const GroupLane<G, S, kThreads> g(C, ex[threadIdx.x / 32]);
   if (g.warp_idle) return;
   Proj<A> p;
   p.x = A::load(x, C, g.c);

@@ -35,8 +35,8 @@ _SIGNATURES = {
     "kt_map_pdouble_{c}": [P, P, P, P, P, P, I, I, I, P],
 }
 _ED_SIGNATURES = {  # csrc/edwards.cu, per Edwards curve
-    "kt_ed_scalar_mul_{c}": [P, P, P, P, I, P, P, P, P, P, I, P],
-    "kt_ed_map_add_{c}": [P] * 12 + [I, I, P],
+    "kt_ed_scalar_mul_{c}": [P, P, P, P, I, P, P, P, P, P, I, I, P],
+    "kt_ed_map_add_{c}": [P] * 12 + [I, I, I, P],
     "kt_ed_map_double_{c}": [P] * 8 + [I, I, P],
 }
 _PAIR_SIGNATURES = {  # csrc/pairing.cu
@@ -111,10 +111,13 @@ def ptxas_report() -> list[str]:
     """One line per kernel: registers, spill stores/loads and stack, from the
     `-Xptxas -v` log of the current build."""
     log = BUILD / f"libkt_{source_hash()}.ptxas.txt"
-    if not log.exists():
-        return []
+    return parse_ptxas(log.read_text()) if log.exists() else []
+
+
+def parse_ptxas(text: str) -> list[str]:
+    """One line per kernel of an `nvcc -Xptxas -v` log (ptxas_report)."""
     out, name, spill = [], None, ("?", "?", "?")
-    for line in log.read_text().splitlines():
+    for line in text.splitlines():
         m = re.search(r"Compiling entry function '(\w+)'", line)
         if m:
             name = m.group(1)

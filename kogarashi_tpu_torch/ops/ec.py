@@ -12,8 +12,9 @@ elements 0..j; maps take (rows, C). rows = 8 (G1, Grumpkin) or 16 (G2);
 int32 words in Montgomery form, canonical in and out.
 
 Dispatch: a CUDA tensor launches the kernel (and counts the launch in
-`LAUNCHES`, K2's and K4's also by lane group in `GROUP_LAUNCHES`); a CPU
-tensor runs the plain version. There is no fallback from one to the other.
+`LAUNCHES`, K2's and K4's also by lane group in `GROUP_LAUNCHES`, where
+`ops/edwards.py` counts E1's and E2's); a CPU tensor runs the plain version.
+There is no fallback from one to the other.
 """
 
 from __future__ import annotations
@@ -29,7 +30,7 @@ from . import _build
 
 KERNELS = ("scan_mixed", "scan_proj", "map_padd", "map_pdouble")
 LAUNCHES: dict = {f"{k}_{c}": 0 for k in KERNELS for c in ("g1", "g2", "grumpkin")}
-GROUP_LAUNCHES: dict = {}  # "scan_proj_g1" -> {g: launches}, K2 and K4
+GROUP_LAUNCHES: dict = {}  # "scan_proj_g1" -> {g: launches}: K2, K4, E1, E2
 
 
 def reset_launches() -> None:
@@ -180,16 +181,20 @@ def _check(curve: Curve, ts, ndim: int):
 
 
 # ---------------------------------------------------------------------------
-# lane groups (csrc/ec.cu): K2 and K4 spread one lane's point op over g
-# threads of a warp where one thread per lane would leave the card idle
+# lane groups (csrc/lane_group.cuh): K2 and K4 (csrc/ec.cu), E1 and E2
+# (csrc/edwards.cu) spread one lane's point op over g threads of a warp where
+# one thread per lane would leave the card idle
 # ---------------------------------------------------------------------------
 
 # (kernel, curve) -> ((C at least, g), ...): a launch over C lanes takes the g
 # of the first row whose bound C meets. The rows come from timing every g at
-# each shape of the main path on an H100 (`profile_lanes.py`, PERF.md); each
-# g named here is built in csrc/ec.cu, and no other (1: the one-thread kernel).
+# each shape of the main path on an H100 (`profile_lanes.py`,
+# `profile_edwards.py`, PERF.md); each g named here is built (csrc/ec.cu;
+# csrc/edwards.cu's KT_ED_GROUPS), and no other (1: the one-thread kernel).
 # Grumpkin builds G1's sizes; its K2 rows come from its own shapes, those of
-# one Nova secondary commit (78982 points).
+# one Nova secondary commit (78982 points). Jubjub's rows cover the signature
+# paths' shapes (E1 at 2n lanes, E2 at n for n signatures) and the lane
+# counts between and beyond them.
 LANE_GROUPS = {
     ("scan_proj", "g1"): ((32768, 1), (8192, 2), (4096, 4), (0, 8)),
     ("scan_proj", "g2"): ((16384, 1), (2048, 8), (0, 16)),
@@ -197,6 +202,8 @@ LANE_GROUPS = {
     ("map_pdouble", "g1"): ((8192, 1), (0, 4)),
     ("map_pdouble", "g2"): ((8192, 1), (0, 16)),
     ("map_pdouble", "grumpkin"): ((8192, 1), (0, 4)),
+    ("ed_scalar_mul", "jubjub"): ((32768, 1), (16384, 2), (4096, 4), (0, 8)),
+    ("ed_map_add", "jubjub"): ((16384, 1), (8192, 2), (4096, 4), (0, 8)),
 }
 
 
@@ -206,7 +213,7 @@ def groups(kernel: str, curve: Curve) -> tuple:
 
 
 def lane_group(kernel: str, curve: Curve, C: int) -> int:
-    """Threads per lane for a K2 or K4 launch over C lanes (LANE_GROUPS)."""
+    """Threads per lane for a K2, K4, E1 or E2 launch over C lanes (LANE_GROUPS)."""
     return next(g for least, g in LANE_GROUPS[(kernel, curve.name)] if C >= least)
 
 
@@ -220,7 +227,7 @@ def _group(kernel: str, curve: Curve, C: int, group):
 
 def _launch(kernel: str, curve: Curve, ins, outs, *ints, group: int | None = None):
     """One launch of kernel_curve; `group`: K2's and K4's lane group, passed
-    after the other ints and counted in GROUP_LAUNCHES."""
+    after the other ints (`_count`)."""
     key = f"{kernel}_{curve.name}"
     if group is not None:
         ints += (group,)
@@ -229,7 +236,13 @@ def _launch(kernel: str, curve: Curve, ins, outs, *ints, group: int | None = Non
         fn = getattr(_build.lib(), f"kt_{key}")
         rc = fn(*[t.data_ptr() for t in ins], *[t.data_ptr() for t in outs], *ints, stream)
     _build.check(rc, key)
-    LAUNCHES[key] += 1
+    _count(LAUNCHES, key, group)
+
+
+def _count(launches: dict, key: str, group: int | None) -> None:
+    """One launch of `key` in `launches`, and under its lane group (K2, K4,
+    E1, E2) in GROUP_LAUNCHES."""
+    launches[key] += 1
     if group is not None:
         by = GROUP_LAUNCHES.setdefault(key, {})
         by[group] = by.get(group, 0) + 1

@@ -9,8 +9,8 @@ word tensor in Montgomery form, canonical in and out; scalars (16, n) int32
 standard-form 16-bit limbs (`fields.spec.ints_to_limbs16`).
 
 Dispatch: a CUDA tensor launches the kernel (and counts the launch in
-`LAUNCHES`); a CPU tensor runs the plain version. There is no fallback from
-one to the other.
+`LAUNCHES`, E1's and E2's also by lane group in `ec.GROUP_LAUNCHES`); a CPU
+tensor runs the plain version. There is no fallback from one to the other.
 """
 
 from __future__ import annotations
@@ -27,6 +27,7 @@ LAUNCHES: dict = {f"{k}_jubjub": 0 for k in KERNELS}
 def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+        ec.GROUP_LAUNCHES.pop(k, None)
 
 
 # ---------------------------------------------------------------------------
@@ -49,7 +50,7 @@ def eadd_h(curve, p, q):
 
 
 def edouble_h(curve, p):
-    """Extended doubling, a = -1 (edwards.rs:99-116): 4 multiplies, 3 squares."""
+    """Extended doubling, a = -1 (edwards.rs:99-116): 3 squares, 5 multiplies."""
     F = curve.alg
     x, y, _, z = p
     xx, bb, zz, xy = F.mul_many([(x, x), (y, y), (z, z), (x, y)])
@@ -104,23 +105,28 @@ def map_double_plain(curve, p, times: int = 1):
 # ---------------------------------------------------------------------------
 
 
-def _launch(kernel: str, curve, ptrs, *ints):
+def _launch(kernel: str, curve, ptrs, *ints, group: int | None = None):
+    """One launch of kernel_curve; `group`: E1's and E2's lane group, passed
+    after the other ints and counted in `ec.GROUP_LAUNCHES`."""
     key = f"{kernel}_{curve.name}"
+    if group is not None:
+        ints += (group,)
     with torch.cuda.device(ptrs[0].device):
         stream = torch.cuda.current_stream().cuda_stream
         args = [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in ptrs]
         rc = getattr(_build.lib(), f"kt_{key}")(*args, *ints, stream)
     _build.check(rc, key)
-    LAUNCHES[key] += 1
+    ec._count(LAUNCHES, key, group)
 
 
 def _empty4(like, n: int):
     return tuple(torch.empty((8, n), dtype=torch.int32, device=like.device) for _ in range(4))
 
 
-def scalar_mul(curve, p, k):
+def scalar_mul(curve, p, k, group: int | None = None):
     """E1. [k]P per lane: p (X, Y, T, Z) of (8, n), or one point (8, 1)
-    broadcast over the lanes; k (16, n) int32 standard-form 16-bit limbs."""
+    broadcast over the lanes; k (16, n) int32 standard-form 16-bit limbs.
+    `group`: threads per lane, by default `ec.lane_group`'s."""
     on_card = ec._check(curve, p, 2)
     if k.dtype != torch.int32 or k.dim() != 2 or k.shape[0] != 16 or not k.is_contiguous():
         raise ValueError(f"expected (16, n) contiguous int32 scalar limbs, got {k.dtype} {tuple(k.shape)}")
@@ -129,22 +135,26 @@ def scalar_mul(curve, p, k):
     n, pn = k.shape[1], p[0].shape[1]
     if pn not in (1, n):
         raise ValueError(f"{pn} base lanes for {n} scalars")
+    g = ec._group("ed_scalar_mul", curve, n, group)
     if not on_card:
         return scalar_mul_plain(curve, p, k)
     out = _empty4(k, n)
     if n:
-        _launch("ed_scalar_mul", curve, (*p, pn, k, *out), n)
+        _launch("ed_scalar_mul", curve, (*p, pn, k, *out), n, group=g)
     return out
 
 
-def map_add(curve, p, q, neg: bool = False):
-    """E2. Pointwise p + q, or p - q when `neg`; (8, n) each."""
-    if not ec._check(curve, (*p, *q), 2):
-        return map_add_plain(curve, p, q, neg)
+def map_add(curve, p, q, neg: bool = False, group: int | None = None):
+    """E2. Pointwise p + q, or p - q when `neg`; (8, n) each. `group`:
+    threads per lane, by default `ec.lane_group`'s."""
+    on_card = ec._check(curve, (*p, *q), 2)
     n = p[0].shape[1]
+    g = ec._group("ed_map_add", curve, n, group)
+    if not on_card:
+        return map_add_plain(curve, p, q, neg)
     out = _empty4(p[0], n)
     if n:
-        _launch("ed_map_add", curve, (*p, *q, *out), n, int(neg))
+        _launch("ed_map_add", curve, (*p, *q, *out), n, int(neg), group=g)
     return out
 
 
@@ -163,13 +173,17 @@ def map_double(curve, p, times: int = 1):
 # the least time the card could take for a kernel call (chip_smoke.py)
 # ---------------------------------------------------------------------------
 
-# Montgomery multiplies: E1 per lane (256 bits x (edouble 7 + eadd 10)), E2
-# per add, E3 per doubling
-MULS = {"ed_scalar_mul": 256 * 17, "ed_map_add": 10, "ed_map_double": 7}
-# dependent multiply levels of one ladder bit: edouble 2 (the four squares
-# and products, then the four outputs), eadd 3 (the five products, the
-# multiply by d, the four outputs); the critical-path floor chip_smoke.py logs
-LADDER_LEVELS = 5
+# Montgomery multiplies the work needs: E1 per lane (d T_P once; 256 bits x
+# (edouble 8 + the add of the fixed base 8); the last add's T, as no doubling
+# reads T), E2 per add (9 and the multiply by d), E3 per doubling 7 (3
+# squares, 4 multiplies) and the last doubling's T once (`bound_ms`)
+MULS = {"ed_scalar_mul": 256 * 16 + 2, "ed_map_add": 10, "ed_map_double": 7}
+# dependent multiply levels of one ladder bit (E1): edouble 2 (x^2, y^2, z^2,
+# x y; the four outputs), the add of the fixed base 2 (its five products; the
+# four outputs); of one E2 add, 3 (the five products, the multiply by d, the
+# four outputs). The critical-path floors chip_smoke.py logs.
+LADDER_LEVELS = 4
+ADD_LEVELS = 3
 
 
 def bound_ms(kernel: str, n: int, sm_clock_hz: float, times: int = 1, base_lanes: int | None = None):
@@ -178,7 +192,7 @@ def bound_ms(kernel: str, n: int, sm_clock_hz: float, times: int = 1, base_lanes
     132 SMs) and the time to read each input and write each output once at
     3.35 TB/s, for one call over n lanes (E1: `base_lanes` base points, 1 or
     n; E3: `times` doublings)."""
-    muls = n * MULS[kernel] * (times if kernel == "ed_map_double" else 1)
+    muls = n * (MULS[kernel] * times + 1 if kernel == "ed_map_double" else MULS[kernel])
     t_ops = muls * ec.MULADD_PER_MUL / (ec.H100_SMS * ec.MULADD_PER_SM_CLOCK * sm_clock_hz) * 1e3
     point = 4 * 8 * 4  # bytes of one extended point
     in_bytes = {"ed_scalar_mul": (base_lanes or n) * point + n * 16 * 4,

@@ -238,6 +238,49 @@ def test_edwards_kernels_match_plain(dev):
         assert all(torch.equal(a, b) for a, b in zip(E.map_double(JUBJUB, p, times), E.map_double_plain(JUBJUB, p, times)))
 
 
+@pytest.mark.parametrize("n", [1, 31, 2048 + 5])
+def test_scalar_mul_lane_groups_match_plain(dev, n):
+    """E1 at every built lane group, exactly against its plain version, with
+    the per-lane base and the broadcast base (pn = 1), at n lanes: one lane,
+    a ragged warp and 2048 + 5 (lanes past the last group and warp). The
+    scalars start 2^256 - 1, 0, 1, order - 1, order; each call adds one
+    launch under its g."""
+    from kogarashi_tpu_torch.curves.edwards import JUBJUB, generator
+    from kogarashi_tpu_torch.ops import edwards as E
+
+    _, p = _jubjub_points(n, 4, dev)
+    rng = random.Random(5)
+    order = JUBJUB.order
+    ks = [(1 << 256) - 1, 0, 1, order - 1, order] + [rng.randrange(1 << 256) for _ in range(n)]
+    k = torch.from_numpy(ints_to_limbs16(ks[:n])).to(dev)
+    for base in (p, generator(JUBJUB, dev)):
+        want = E.scalar_mul_plain(JUBJUB, base, k)
+        for g in ec.groups("ed_scalar_mul", JUBJUB):
+            before = _group_launches("ed_scalar_mul", JUBJUB, g)
+            got = E.scalar_mul(JUBJUB, base, k, group=g)
+            assert all(torch.equal(a, b) for a, b in zip(got, want)), g
+            assert _group_launches("ed_scalar_mul", JUBJUB, g) == before + 1
+
+
+@pytest.mark.parametrize("n", [1024, 1 << 16])
+def test_map_add_lane_groups_match_plain(dev, n):
+    """E2 with and without the negation at every built lane group, exactly
+    against its plain version, at the signature path's 1024 lanes and at
+    2^16; each call adds one launch under its g."""
+    from kogarashi_tpu_torch.curves.edwards import JUBJUB
+    from kogarashi_tpu_torch.ops import edwards as E
+
+    _, p = _jubjub_points(n, 6, dev)
+    q = tuple(t.roll(3, dims=1).contiguous() for t in p)
+    for neg in (False, True):
+        want = E.map_add_plain(JUBJUB, p, q, neg)
+        for g in ec.groups("ed_map_add", JUBJUB):
+            before = _group_launches("ed_map_add", JUBJUB, g)
+            got = E.map_add(JUBJUB, p, q, neg, group=g)
+            assert all(torch.equal(a, b) for a, b in zip(got, want)), (neg, g)
+            assert _group_launches("ed_map_add", JUBJUB, g) == before + 1
+
+
 def test_batch_verify_on_card(dev):
     """64 signatures over 8 keys on the card: equal to the host verify, with
     S + 1, a changed message and R bytes that do not decompress rejected."""

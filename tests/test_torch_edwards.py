@@ -9,6 +9,8 @@ packages keep Montgomery form with R = 2^256 and canonical values, so the
 outputs agree word for word."""
 
 import random
+import re
+from pathlib import Path
 
 import jax.numpy as jnp
 import numpy as np
@@ -26,6 +28,7 @@ from kogarashi_tpu_torch.curves import edwards as ED
 from kogarashi_tpu_torch.curves.edwards import JUBJUB
 from kogarashi_tpu_torch.fields import mont
 from kogarashi_tpu_torch.fields.spec import BLS_FR, MONT_R, ints_to_limbs16
+from kogarashi_tpu_torch.ops import ec
 from kogarashi_tpu_torch.ops import edwards as E
 from kogarashi_tpu_torch.pyref import JUBJUB_SPEC
 
@@ -193,8 +196,71 @@ def test_kernel_wrappers_check_their_inputs(jub):
 
 
 def test_bound_counts_the_ladder():
-    """E1's bound counts 256 x 17 multiplies a lane; at 1 GHz and 2^16
-    lanes that is operations-bound."""
+    """E1's bound counts the 256 x 16 + 2 multiplies a lane the ladder needs
+    (d T_P once; a doubling's 8 and the fixed base's add's 8 a bit, as no
+    doubling reads T; the last add's T), E3's 7 a doubling and the last
+    doubling's T; at 1 GHz and 2^16 lanes both are operations-bound."""
     ms, by = E.bound_ms("ed_scalar_mul", 1 << 16, 1e9)
-    want = (1 << 16) * 256 * 17 * 264 / (132 * 64 * 1e9) * 1e3
+    want = (1 << 16) * (256 * 16 + 2) * 264 / (132 * 64 * 1e9) * 1e3
     assert by == "operations" and abs(ms - want) < 1e-12
+    ms, by = E.bound_ms("ed_map_double", 1 << 16, 1e9, times=3)
+    want = (1 << 16) * (7 * 3 + 1) * 264 / (132 * 64 * 1e9) * 1e3
+    assert by == "operations" and abs(ms - want) < 1e-12
+
+
+def _extended_words(affine, zs):
+    """Affine (x, y) integer pairs and Z values -> (X, Y, T, Z) = (x z, y z,
+    x y z, z) as integer lists, and as the port's and the JAX package's words."""
+    cols = [[x * z % P for (x, _), z in zip(affine, zs)], [y * z % P for (_, y), z in zip(affine, zs)],
+            [x * y * z % P for (x, y), z in zip(affine, zs)], [z % P for z in zs]]
+    return (tuple(torch.from_numpy(BLS_FR.encode(c)) for c in cols), tuple(_jax_words(c) for c in cols))
+
+
+def _fixed_base_add(p, q):
+    """p + q as E1 adds its fixed base q, on halves: d T_q and X_q + Y_q
+    formed first, so the product T_p (d T_q) stands for eadd_h's d (T_p T_q)."""
+    F = JUBJUB.alg
+    x0, y0, t0, z0 = p
+    x1, y1, t1, z1 = q
+    dt1 = F.mul(F.const(JUBJUB.d, t1.shape[1:], t1.device), t1)
+    aa, bb, cc, dd, m = F.mul_many([(x0, x1), (y0, y1), (t0, dt1), (z0, z1), (F.add(x0, y0), F.add(x1, y1))])
+    h = F.add(aa, bb)
+    e = F.sub(m, h)
+    f, g = F.sub(dd, cc), F.add(dd, cc)
+    return tuple(F.mul_many([(e, f), (g, h), (e, h), (f, g)]))
+
+
+def test_fixed_base_add_matches_eadd_and_jax():
+    """E1's add of the fixed base (d T and X + Y formed once) equals eadd_h
+    and the JAX package's eadd word for word, on seeded random Jubjub points
+    with random Z, the identity and (0, -1), whose T is 0, on either side:
+    the kernel's association gives the plain version's words."""
+    rng = random.Random(9)
+    pts = [(q.x.v, q.y.v) for q in _rand_points(rng, 6)] + [(0, 1), (0, P - 1)]
+    left = pts + pts[::-1]
+    right = pts[::-1] + pts
+    (p, jp), (q, jq) = (_extended_words(a, [rng.randrange(1, P) for _ in a]) for a in (left, right))
+    ph, qh = tuple(mont.to_halves(t) for t in p), tuple(mont.to_halves(t) for t in q)
+    got = tuple(mont.to_words(t) for t in _fixed_base_add(ph, qh))
+    want = tuple(mont.to_words(t) for t in E.eadd_h(JUBJUB, ph, qh))
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert _equal(got, JJUBJUB.add(jp, jq))
+
+
+def test_lane_group_rule_covers_every_lane_count():
+    """E1's and E2's rule gives a built group size for every lane count from
+    1 to 2^20, and csrc/edwards.cu builds exactly the sizes it names; the
+    one-thread kernel where the measurements keep it (E1 from 32768 lanes,
+    E2 at 2^16) and a group at the signature paths' shapes (E1 at 2048 and
+    16384 lanes, E2 at 1024 and 8192: 1024 and 8192 signatures)."""
+    src = (Path(E.__file__).resolve().parent.parent / "csrc" / "edwards.cu").read_text()
+    mask = int(re.search(r"#define KT_ED_GROUPS (0x[0-9a-f]+)", src).group(1), 16)
+    for kernel in ("ed_scalar_mul", "ed_map_add"):
+        built = ec.groups(kernel, JUBJUB)
+        assert {ec.lane_group(kernel, JUBJUB, n) for n in range(1, (1 << 20) + 1)} == set(built)
+        assert built == tuple(g for g in range(1, 33) if mask >> g & 1)
+    assert ec.lane_group("ed_scalar_mul", JUBJUB, 32768) == 1 and ec.lane_group("ed_map_add", JUBJUB, 1 << 16) == 1
+    assert min(ec.lane_group("ed_scalar_mul", JUBJUB, n) for n in (2048, 16384)) > 1
+    assert min(ec.lane_group("ed_map_add", JUBJUB, n) for n in (1024, 8192)) > 1
+    with pytest.raises(ValueError):
+        E.map_add(JUBJUB, *(ED.identity(JUBJUB, 4, "cpu"),) * 2, group=3)
