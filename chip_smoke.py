@@ -43,14 +43,14 @@ with the card's name and power limit beside it:
            2048 lanes and at 16384 (eight tiles of the 2048, each held to the
            plain result; the plain version timed at both), edge scalars
            among them; timed on the device beside `ops/edwards.py::bound_ms`,
-           E1 and E2 at 1024 lanes also beside a critical-path floor; E1 and
-           E2 with the lane group g `ops/ec.py::lane_group` picks
+           E1-E3 at the path's shapes also beside a critical-path floor;
+           E1-E3 with the lane group g `ops/ec.py::lane_group` picks
   signature  RedDSA over Jubjub: 1024 signatures (64 keys, 32-byte messages,
            random.Random(SIG_SEED)), three of them bad (S + 1, a changed
            message, R bytes that do not decompress); `batch_verify` on the
            card equals the host verify on every lane, exactly those three
-           rejected; E1-E3 must each have launched in that run, E1 and E2
-           at the lane group the rule picks for its shape; then timed at
+           rejected; E1-E3 must each have launched in that run, at the
+           lane group the rule picks for its shape; then timed at
            1024 and 8192 signatures (the 1024 tiled) with its split (host
            hashing and decompression, encode, E1, the combine, decode), beside
            the host verify's time per signature
@@ -79,10 +79,11 @@ with the card's name and power limit beside it:
            schedule's levels at one dependent inline multiply, the Fermat
            inverse's chain, a launch), their one-thread floor and the host
            pairing's seconds, with the build's registers, stack and spills;
-           P3 at 2^16 lanes, every op
-           (mul, sq, inv, frobenius, conj, mul_by_034), held to its plain
-           version and timed beside its bound, and mul and conj at the one
-           lane `gt_eq_device` launches them on
+           P3's verify-equation launches (conj, mul at one lane) on the
+           routes `ops/pairing.py::p3_route` picks; P3 at one lane and at
+           2^16 lanes, every op (mul, sq, inv, frobenius, conj, mul_by_034)
+           on the route the rule picks, held to its plain version and timed
+           beside its bound and its schedule route's depth floor
   nova     Nova IVC at the fixture's full size (`phase_nova`): the 3-step
            chain under the reference seed verifies, rejects a tampered z_i,
            and its proof's sha256 is the JAX package's; every Grumpkin and G1
@@ -102,13 +103,13 @@ Grumpkin, the 1024-signature batch_verify's for E1-E3, the verify
 equation's for P1-P3), path, launches_by_path (for G1's also the
 distributed path's, counted inside rank 0), max_abs_err, ms, plain_ms,
 bound_ms, bound_by, bound_share, library_ms, shape, times, g for K2 and K4,
-their other shapes, for K2, K4, E1 and E2 launches_by_g (E1 and E2 also
-g), for K2 msm_sum_ms and msm_sum_bound_ms, for K4 at one lane, E1 and E2
-at 1024 lanes floor_ms, for P1 and P2
-threads, one_thread_floor_ms, depth_floor_ms and its share,
-levels, the build's registers and the host's seconds, for P3 its other
-ops and one_lane), the card, and {"ok": true, "device": {...}}. Without a CUDA device it
-exits non-zero.
+their other shapes, for K2, K4, E1-E3 launches_by_g (E1-E3 also g), for
+K2 msm_sum_ms and msm_sum_bound_ms, for K4 at one lane, E1 at 2048 lanes,
+E2 and E3 at 1024 floor_ms, for P1 and P2 threads, one_thread_floor_ms,
+depth_floor_ms and its share, levels, the build's registers and the host's
+seconds, for P3 (at one lane) p3_route, depth_floor_ms, other_ops, wide (2^16
+lanes) and launches_by_route), the card, and {"ok": true, "device": {...}}. Without a
+CUDA device it exits non-zero.
 """
 
 from __future__ import annotations
@@ -154,7 +155,7 @@ PAIR_REPLACES = {
     "f12_map": "kogarashi_tpu/ops/pairing.py:383-385 (f12_mul_jit, f12_sq_jit, f12_inv_jit; with f12_frobenius :233, "
                "f12_conj :204, f12_mul_by_034 :213; XLA, no Pallas kernel)",
 }
-P3_LANES = 1 << 16  # P3 is held to its plain version and timed at this many lanes, every op
+P3_LANES = 1 << 16  # P3 is held to its plain version and timed at this many lanes and at one, every op
 PAIRING_SEED = 0x9A1
 REPLACES = {
     "scan_mixed": "kogarashi_tpu/ops/ec_pallas.py:336",
@@ -533,9 +534,10 @@ def phase_edwards(dev, card) -> dict:
     the plain version timed at both, with its critical-path floor
     (LADDER_LEVELS x 256 x one dependent multiply's cycles, csrc/
     imad_probe.cu, + an empty launch); E2 (p - q, the path's form) and E3
-    (t = 3) at 2^16 lanes and at the paths' 1024 and 8192, E2 at 1024 beside
-    its floor (ADD_LEVELS x one dependent multiply + an empty launch). E1 and
-    E2 run at the lane group `ec.lane_group` picks (logged as g)."""
+    (t = 3) at the paths' 1024 (the shape the kernels line records) and 8192
+    and at 2^16 lanes, E2 and E3 at 1024 beside their floors (ADD_LEVELS, or DOUBLE_LEVELS x t, x one dependent
+    multiply + an empty launch). E1-E3 run at the lane group `ec.lane_group`
+    picks (logged as g)."""
     import torch
 
     from kogarashi_tpu_torch.curves.edwards import JUBJUB
@@ -563,7 +565,7 @@ def phase_edwards(dev, card) -> dict:
             raise AssertionError(f"ed_scalar_mul at {lanes} lanes: kernel differs from the plain version")
         ms = cuda_ms(lambda: E.scalar_mul(JUBJUB, pp, kk), reps=5)
         bound, by = E.bound_ms("ed_scalar_mul", lanes, clock, base_lanes=lanes)
-        floor = E.LADDER_LEVELS * 256 * mul_cycles / clock * 1e3 + launch_ms
+        floor = E.floor_ms("ed_scalar_mul", mul_cycles, clock, launch_ms)
         g = ec.lane_group("ed_scalar_mul", JUBJUB, lanes)
         runs["ed_scalar_mul"].append(dict(shape=[8, lanes], times=1, g=g, max_abs_err=err, ms=ms,
                                           plain_ms=plain_ms[lanes], bound_ms=bound, bound_by=by,
@@ -573,7 +575,7 @@ def phase_edwards(dev, card) -> dict:
                        f"({E.LADDER_LEVELS} levels x 256 bits x {mul_cycles:.1f} cycles + a launch)"
                        f", plain {plain_ms[lanes]:.1f} ms ({card})")
     del p16, k16, want
-    for lanes in (ED_MAP_LANES, SIG_N, SIG_N * SIG_TILES):
+    for lanes in (SIG_N, SIG_N * SIG_TILES, ED_MAP_LANES):  # first the shape the kernels line records
         a, _ = jubjub_lanes(lanes, 12, dev)
         b = tuple(c.roll(1, dims=1).contiguous() for c in a)
         cases = (("ed_map_add", 1, lambda: E.map_add(JUBJUB, a, b, neg=True),
@@ -588,16 +590,14 @@ def phase_edwards(dev, card) -> dict:
                 raise AssertionError(f"{kname} at {lanes} lanes: kernel differs from the plain version")
             ms = cuda_ms(kern, reps=20)
             bound, by = E.bound_ms(kname, lanes, clock, times=times)
-            rec = dict(shape=[8, lanes], times=times, max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                       bound_ms=bound, bound_by=by, bound_share=bound / ms)
-            extra = ""
-            if kname == "ed_map_add":
-                rec["g"] = ec.lane_group(kname, JUBJUB, lanes)
-                extra = f" g={rec['g']}"
-                if lanes == SIG_N:
-                    rec["floor_ms"] = E.ADD_LEVELS * mul_cycles / clock * 1e3 + launch_ms
-                    extra += (f", critical-path floor {rec['floor_ms']:.5f} ms ({E.ADD_LEVELS} levels x "
-                              f"{mul_cycles:.1f} cycles + a launch)")
+            rec = dict(shape=[8, lanes], times=times, g=ec.lane_group(kname, JUBJUB, lanes), max_abs_err=err,
+                       ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by, bound_share=bound / ms)
+            extra = f" g={rec['g']}"
+            if lanes == SIG_N:
+                rec["floor_ms"] = E.floor_ms(kname, mul_cycles, clock, launch_ms, times)
+                levels = E.ADD_LEVELS if kname == "ed_map_add" else E.DOUBLE_LEVELS * times
+                extra += (f", critical-path floor {rec['floor_ms']:.5f} ms ({levels} levels x "
+                          f"{mul_cycles:.1f} cycles + a launch)")
             runs[kname].append(rec)
             log("edwards", f"{kname} (8, {lanes}) t={times}: exact; kernel {ms:.4f} ms, bound {bound:.5f} ms "
                            f"({by}), share {bound / ms:.3f}, plain {plain_ms:.3f} ms;{extra} ({card})")
@@ -632,19 +632,20 @@ class StageLog(logging.Handler):
 
 
 def ed_groups() -> dict:
-    """E1's and E2's launches by lane group since the last reset."""
+    """E1-E3's launches by lane group since the last reset."""
     from kogarashi_tpu_torch.ops import ec
 
     return {k: dict(v) for k, v in ec.GROUP_LAUNCHES.items() if k.startswith("ed_")}
 
 
 def missing_groups(n: int, by_group: dict) -> list:
-    """E1 and E2 of a batch_verify over n signatures (E1 on 2n lanes, E2 on
-    n) that did not launch at the lane group the rule picks."""
+    """E1-E3 of a batch_verify over n signatures (E1 on 2n lanes, E2 and E3
+    on n) that did not launch at the lane group the rule picks."""
     from kogarashi_tpu_torch.curves.edwards import JUBJUB
     from kogarashi_tpu_torch.ops import ec
 
-    path_g = {k: ec.lane_group(k, JUBJUB, lanes) for k, lanes in (("ed_scalar_mul", 2 * n), ("ed_map_add", n))}
+    path_g = {k: ec.lane_group(k, JUBJUB, lanes)
+              for k, lanes in (("ed_scalar_mul", 2 * n), ("ed_map_add", n), ("ed_map_double", n))}
     return [f"{k} g={g}" for k, g in path_g.items() if by_group.get(f"{k}_jubjub", {}).get(g, 0) <= 0]
 
 
@@ -654,11 +655,11 @@ def phase_signature(dev, card) -> dict:
     SIG_BAD made bad. The host verify runs on every lane (its time per
     signature logged); `batch_verify` on the card must equal it on every
     lane and reject exactly SIG_BAD. The launch counters are read over that
-    first call: E1-E3 must each have launched, E1 and E2 at the lane groups
-    the rule picks. Then 1024 and 8192 signatures (the 1024 tiled) are timed
+    first call: E1-E3 must each have launched, at the lane groups the rule
+    picks. Then 1024 and 8192 signatures (the 1024 tiled) are timed
     with their split (`stages.Stages` in `signature/reddsa.py`, each stage
     ended by a device synchronisation), each run held to the host verify and
-    to having launched E1 and E2 at its own lane groups."""
+    to having launched E1-E3 at its own lane groups."""
     from kogarashi_tpu_torch.ops import edwards as E
     from kogarashi_tpu_torch.pyref import JUBJUB_SPEC
     from kogarashi_tpu_torch.signature import RedDSA, Signature, batch_verify
@@ -699,7 +700,7 @@ def phase_signature(dev, card) -> dict:
                      f"batch_verify on the card equals the host verify on every lane, rejecting exactly "
                      f"{bad} ({', '.join(SIG_BAD[i] for i in bad)}); first call {t_first:.3f} s; host verify "
                      f"{t_host * 1e3:.3f} ms per signature ({card})")
-    log("signature", f"launches: {json.dumps(launches)}; E1 and E2 by lane group g: {json.dumps(by_group)}")
+    log("signature", f"launches: {json.dumps(launches)}; E1-E3 by lane group g: {json.dumps(by_group)}")
     for tiles in (1, SIG_TILES):
         n = SIG_N * tiles
         E.reset_launches()
@@ -715,7 +716,7 @@ def phase_signature(dev, card) -> dict:
         split = ", ".join(f"{k} {v:.4f}" for k, v in st.stages)
         log("signature", f"batch_verify at {n} signatures: {total:.4f} s, {n / total:.1f} signatures/s "
                          f"({total / n * 1e3:.4f} ms each; host verify {t_host * 1e3:.3f} ms each); split, s: "
-                         f"{split}; E1 and E2 by lane group g: {json.dumps(ed_groups())} ({card})")
+                         f"{split}; E1-E3 by lane group g: {json.dumps(ed_groups())} ({card})")
     return launches, by_group
 
 
@@ -737,14 +738,17 @@ def phase_pairing(dev, card: str, proof, inputs, pvk) -> tuple:
     e(A, B) e(acc, -gamma) e(C, -delta) through P1 (`multi_miller_loop_device`)
     and P2 (`final_exp_device`), held to `pvk.alpha_g1_beta_g2` by P3 (Gt's
     f - target, `ops/pairing.py::gt_eq_device`). The launch counters are read
-    over that run: P1-P3 must each have launched. The result must equal the
+    over that run: P1-P3 must each have launched, P3's conj and mul on the
+    routes `p3_route` picks at one lane. The result must equal the
     host's `final_exp_fast(multi_miller_loop(...))` bit for bit, the Miller
     loop's too, and a changed public input must be rejected; `pairing_device`
     must equal `pairing_fast` on (a G1, G2) for a = 1, 2, r - 1 and two seeded
     values. P1 and P2 are held to their plain versions on the card and timed
     (`ec.device_ms`) beside their depth and one-thread floors, the build's
-    registers and the host pairing's time for the same equation; P3 at P3_LANES
-    lanes, every op, against its plain version, timed beside its bound."""
+    registers and the host pairing's time for the same equation; P3 at one
+    lane and at P3_LANES lanes, every op, on the route the rule picks (each
+    call required to launch there), against its plain version, timed beside
+    its bound and its schedule route's depth floor."""
     import torch
 
     from kogarashi_tpu_torch import constants as C
@@ -769,12 +773,14 @@ def phase_pairing(dev, card: str, proof, inputs, pvk) -> tuple:
     fe = P.final_exp_device(ml)
     ok = P.gt_eq_device(fe, pvk.alpha_g1_beta_g2)
     t_dev = time.perf_counter() - t0
-    launches = dict(P.LAUNCHES)
+    launches, routes = dict(P.LAUNCHES), dict(P.ROUTE_LAUNCHES)
     if not (ok and host_ok):
         raise AssertionError(f"pairing: the verify equation does not hold (card {ok}, host {host_ok})")
     missing = [k for k, v in launches.items() if v <= 0]
-    if missing:
-        raise AssertionError(f"kernels not launched on the Groth16 verify equation: {missing}")
+    missing += [f"f12_map {op} on the {P.p3_route(op, 1)} route" for op in ("conj", "mul")
+                if routes[P.p3_route(op, 1)] <= 0]
+    if missing or sum(routes.values()) != launches["f12_map"]:
+        raise AssertionError(f"kernels not launched on the Groth16 verify equation: {missing} ({routes})")
     if not torch.equal(ml, P.encode_fq12(host_ml, dev)) or not torch.equal(fe, P.encode_fq12(host_fe, dev)):
         raise AssertionError("pairing: the card's Miller loop or final exponentiation differs from the host's")
     bad = proof.pairs(pvk, [inputs[0], (inputs[1] + 1) % C.R] + list(inputs[2:]))
@@ -790,7 +796,7 @@ def phase_pairing(dev, card: str, proof, inputs, pvk) -> tuple:
                    f"final exponentiation bit for bit; a changed public input rejected; pairing_device = "
                    f"pairing_fast at a = 1, 2, r - 1 and two seeded values; host pairing of the same equation: "
                    f"Miller loop {t_host_ml:.4f} s + final exponentiation {t_host_fe:.4f} s ({card})")
-    log("pairing", f"launches: {json.dumps(launches)}")
+    log("pairing", f"launches: {json.dumps(launches)}; f12_map by route: {json.dumps(routes)}")
 
     mul_cycles = ec.mul_latency_cycles(dev, call=True)
     inline_cycles = ec.mul_latency_cycles(dev, call=False)
@@ -832,38 +838,36 @@ def phase_pairing(dev, card: str, proof, inputs, pvk) -> tuple:
                        f"+ a launch); bound {bound:.6f} ms ({by}, {record[kname]['fq_muls']} Fq multiplies); plain "
                        f"{plain_ms:.1f} ms, host {record[kname]['host_s'] * 1e3:.1f} ms; {kname}_kernel: {build} "
                        f"({card})")
-    ops = {}
-    for op in P.OPS:
-        second = {"mul": b, "mul_by_034": c}.get(op)
-        power = 3 if op == "frobenius" else 0
-        want, plain_ms = timed(lambda: P.map_plain(op, a, second, power))
-        got, _ = timed(lambda: P.f12_map(op, a, second, power))
-        err = max_abs_err((got,), (want,))
-        if err:
-            raise AssertionError(f"f12_map {op} at {P3_LANES} lanes: kernel differs from the plain version")
-        ms = cuda_ms(lambda: P.f12_map(op, a, second, power), reps=20)
-        bound, by = P.bound_ms("f12_map", clock, op=op, lanes=P3_LANES)
-        ops[op] = dict(shape=[96, P3_LANES], max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound,
-                       bound_by=by, bound_share=bound / ms)
-        log("pairing", f"f12_map {op} (96, {P3_LANES}){' power 3' if power else ''}: exact; kernel {ms:.4f} ms, "
-                       f"bound {bound:.4f} ms ({by}), share {bound / ms:.3f}, plain {plain_ms:.2f} ms ({card})")
-    one_lane = {}
-    for op in ("mul", "conj"):  # gt_eq_device's two launches, at its one lane
-        a1, b1 = a[:, :1].contiguous(), b[:, :1].contiguous()
-        second = b1 if op == "mul" else None
-        want = P.map_plain(op, a1, second, 0)
-        got = P.f12_map(op, a1, second, 0)
-        err = max_abs_err((got,), (want,))
-        if err:
-            raise AssertionError(f"f12_map {op} at one lane: kernel differs from the plain version")
-        ms = cuda_ms(lambda: P.f12_map(op, a1, second, 0), reps=20)
-        bound, by = P.bound_ms("f12_map", clock, op=op, lanes=1)
-        one_lane[op] = dict(shape=[96, 1], max_abs_err=err, ms=ms, bound_ms=bound, bound_by=by,
-                            bound_share=bound / ms)
-        log("pairing", f"f12_map {op} (96, 1), as gt_eq_device launches it: exact; kernel {ms:.5f} ms, bound "
-                       f"{bound:.7f} ms ({by}), share {bound / ms:.5f}; an empty launch {launch_ms:.5f} ms ({card})")
-    record["f12_map"] = dict(ops["mul"], op="mul", other_ops={k: v for k, v in ops.items() if k != "mul"},
-                             one_lane=one_lane)
+    wide, one_lane = {}, {}
+    for lanes, store in ((P3_LANES, wide), (1, one_lane)):
+        xa, xb, xc = (t[:, :lanes].contiguous() for t in (a, b, c))
+        for op in P.OPS:
+            second = {"mul": xb, "mul_by_034": xc}.get(op)
+            power = 3 if op == "frobenius" else 0
+            route = P.p3_route(op, lanes)
+            want, plain_ms = timed(lambda: P.map_plain(op, xa, second, power))
+            before = dict(P.ROUTE_LAUNCHES)
+            got, _ = timed(lambda: P.f12_map(op, xa, second, power))
+            err = max_abs_err((got,), (want,))
+            if err:
+                raise AssertionError(f"f12_map {op} at {lanes} lanes: kernel differs from the plain version")
+            if P.ROUTE_LAUNCHES[route] != before[route] + 1:
+                raise AssertionError(f"f12_map {op} at {lanes} lanes did not launch on the {route} route")
+            ms = cuda_ms(lambda: P.f12_map(op, xa, second, power), reps=20)
+            bound, by = P.bound_ms("f12_map", clock, op=op, lanes=lanes)
+            depth = P.depth_floor_ms("f12_map", inline_cycles, mul_cycles, clock, launch_ms, op=op)
+            levels, inverses = P.depth_levels("f12_map", op=op, power=power)
+            store[op] = dict(shape=[96, lanes], p3_route=route, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                             bound_ms=bound, bound_by=by, bound_share=bound / ms, depth_floor_ms=depth,
+                             levels=levels, fermat_inverses=inverses)
+            log("pairing", f"f12_map {op} (96, {lanes}){' power 3' if power else ''} on the {route} route: exact; "
+                           f"kernel {ms:.5f} ms, bound {bound:.7f} ms ({by}), share {bound / ms:.5f}; schedule "
+                           f"route's depth floor {depth:.5f} ms ({levels} levels, {inverses} Fermat inverse, a "
+                           f"launch); plain {plain_ms:.2f} ms ({card})")
+    record["f12_map"] = dict(one_lane["mul"], op="mul", other_ops={k: v for k, v in one_lane.items() if k != "mul"},
+                             wide=wide, launches_by_route=routes,
+                             build=builds.get("f12_sched_kernel", "not in the ptxas log"))
+    log("pairing", f"f12_sched_kernel: {record['f12_map']['build']} ({card})")
     return launches, record
 
 

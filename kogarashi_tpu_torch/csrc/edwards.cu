@@ -29,7 +29,7 @@
 // 264 per Montgomery multiply (field.cuh), at NVIDIA's 64 per SM per clock on
 // 132 SMs. E1 needs 256 x 16 + 2 multiplies a lane (d T_P; a doubling's 8
 // and an add's 8 a bit; the last add's T), E2 10, E3 7 a doubling and the
-// last doubling's T (E3 makes 8 a doubling).
+// last doubling's T.
 // Where one thread per lane leaves SMs idle, a lane runs on a lane group of g
 // threads of one warp (csrc/lane_group.cuh, as K2 and K4 in csrc/ec.cu): one
 // dependency level of multiplies at a time, the level's products dealt out
@@ -54,7 +54,12 @@
 //     d, the 4 outputs), stores. g = 8 below 4096 lanes (the signature path's
 //     1024), 4 below 8192, 2 below 16384; from there one thread a lane
 //     (116 registers, so 4 blocks of 128 fit an SM uncapped).
-//   E3 ed_map_double: one thread per lane, `times` doublings.
+//   E3 ed_map_double: loads, `times` doublings of 2 levels each (x^2, y^2,
+//     z^2, x y; then X, Y, Z, and T only at the last doubling, since no
+//     doubling reads T: 7 t + 1 multiplies), stores. g = 4 below 16384
+//     lanes (the signature paths' 1024 and 8192), 2 below 32768, then one
+//     thread a lane; g = 8 was within 2% of g = 4 at 1024 lanes and slower
+//     from 2048 on.
 // chip_smoke.py's build phase prints each kernel's registers and spills.
 
 #include <cuda_runtime.h>
@@ -62,7 +67,7 @@
 #include "field.cuh"
 #include "lane_group.cuh"
 
-// The lane groups (threads per lane) built for E1 and E2, as a mask: bit g
+// The lane groups (threads per lane) built for E1-E3, as a mask: bit g
 // set for group size g. The default is the sizes the lane-count rule
 // (ops/ec.py LANE_GROUPS) picks, and no other; profile_edwards.py builds
 // every candidate (g <= 16) with -D to time them.
@@ -186,8 +191,10 @@ __device__ __forceinline__ Ext<typename Cv::A> eadd_base(const Ext<typename Cv::
 }
 
 // Extended doubling, a = -1 (edwards.rs:99-116): 3 squares and 5 multiplies
-// in 2 levels.
-template <class Cv, int G>
+// in 2 levels. WithT: also T = e dd; without it (E3's doublings but the
+// last, whose T the next doubling does not read) 4 multiplies and then 3,
+// and T is left zero.
+template <class Cv, int G, bool WithT = true>
 __device__ __forceinline__ Ext<typename Cv::A> edouble(const Ext<typename Cv::A>& p,
                                                        const Group<G, true>& grp) {
   typedef typename Cv::A A;
@@ -202,10 +209,17 @@ __device__ __forceinline__ Ext<typename Cv::A> edouble(const Ext<typename Cv::A>
   const E e = A::add(m1[3], m1[3]);
   const E g = A::add(aa, bb);
   const E f = A::sub(g, cc);
-  const E a2[4] = {e, g, e, f}, b2[4] = {f, dd, dd, g};
-  E m2[4];
-  ed_level<A, G>(m2, a2, b2, grp);
-  return Ext<A>{m2[0], m2[1], m2[2], m2[3]};
+  if constexpr (WithT) {
+    const E a2[4] = {e, g, e, f}, b2[4] = {f, dd, dd, g};
+    E m2[4];
+    ed_level<A, G>(m2, a2, b2, grp);
+    return Ext<A>{m2[0], m2[1], m2[2], m2[3]};
+  } else {
+    const E a2[3] = {e, g, f}, b2[3] = {f, dd, g};
+    E m2[3];
+    ed_level<A, G>(m2, a2, b2, grp);
+    return Ext<A>{m2[0], m2[1], A::zero(), m2[2]};
+  }
 }
 
 template <class A>
@@ -296,29 +310,34 @@ __global__ void __launch_bounds__(EdBlock<G>::kThreads, 1)
   if (g.lane < n) ed_store<A, G>(ox, oy, ot, oz, n, g.c, r, g.grp.rank);
 }
 
-// E3: `times` doublings in a row, fused.
-template <class Cv>
-__global__ void __launch_bounds__(kEdThreads, 1)
+// E3: `times` doublings in a row, fused, on G threads a lane; T made only by
+// the last (no doubling reads T).
+template <class Cv, int G>
+__global__ void __launch_bounds__(EdBlock<G>::kThreads, 1)
     ed_map_double_kernel(const u32* __restrict__ x, const u32* __restrict__ y,
                          const u32* __restrict__ t, const u32* __restrict__ z,
                          u32* __restrict__ ox, u32* __restrict__ oy, u32* __restrict__ ot,
                          u32* __restrict__ oz, int n, int times) {
   typedef typename Cv::A A;
-  const int c = blockIdx.x * kEdThreads + threadIdx.x;
-  if (c >= n) return;
-  const Group<1, true> one{0, nullptr};
-  Ext<A> p = ed_load<A>(x, y, t, z, n, c);
+  const GroupLane<G, true, EdBlock<G>::kThreads> g(n, nullptr);
+  if (g.warp_idle) return;
+  Ext<A> p = ed_load<A>(x, y, t, z, n, g.c);
+  if (times > 0) {
 #pragma unroll 1
-  for (int i = 0; i < times; i++) p = edouble<Cv, 1>(p, one);
-  ed_store<A, 1>(ox, oy, ot, oz, n, c, p, 0);
+    for (int i = 1; i < times; i++) p = edouble<Cv, G, false>(p, g.grp);
+    p = edouble<Cv, G, true>(p, g.grp);
+  }
+  if (g.lane < n) ed_store<A, G>(ox, oy, ot, oz, n, g.c, p, g.grp.rank);
 }
 
 typedef void (*EdMulKernel)(const u32*, const u32*, const u32*, const u32*, int, const u32*, u32*,
                             u32*, u32*, u32*, int);
 typedef void (*EdAddKernel)(const u32*, const u32*, const u32*, const u32*, const u32*,
                             const u32*, const u32*, const u32*, u32*, u32*, u32*, u32*, int, int);
+typedef void (*EdDoubleKernel)(const u32*, const u32*, const u32*, const u32*, u32*, u32*, u32*,
+                               u32*, int, int);
 
-// E1 and E2 at group size g, if built (KT_ED_GROUPS);
+// E1, E2 and E3 at group size g, if built (KT_ED_GROUPS);
 // nullptr for any other g.
 template <class Cv, int G = 1>
 EdMulKernel ed_scalar_mul_at(int g) {
@@ -339,6 +358,17 @@ EdAddKernel ed_map_add_at(int g) {
     if constexpr ((KT_ED_GROUPS >> G) & 1)
       if (g == G) return ed_map_add_kernel<Cv, G>;
     return ed_map_add_at<Cv, 2 * G>(g);
+  }
+}
+
+template <class Cv, int G = 1>
+EdDoubleKernel ed_map_double_at(int g) {
+  if constexpr (G > 16) {
+    return nullptr;
+  } else {
+    if constexpr ((KT_ED_GROUPS >> G) & 1)
+      if (g == G) return ed_map_double_kernel<Cv, G>;
+    return ed_map_double_at<Cv, 2 * G>(g);
   }
 }
 
@@ -379,8 +409,10 @@ using namespace kt;
   }                                                                                           \
   extern "C" int kt_ed_map_double_##NAME(const void* x, const void* y, const void* t,         \
                                          const void* z, void* ox, void* oy, void* ot,         \
-                                         void* oz, int n, int times, void* stream) {          \
-    ed_map_double_kernel<CV><<<ed_blocks(n, 1), kEdThreads, 0, (cudaStream_t)stream>>>(        \
+                                         void* oz, int n, int times, int g, void* stream) {   \
+    const EdDoubleKernel kern = ed_map_double_at<CV>(g);                                      \
+    if (!kern) return (int)cudaErrorInvalidValue;                                             \
+    kern<<<ed_blocks(n, g), ed_threads(g), 0, (cudaStream_t)stream>>>(                        \
         (const u32*)x, (const u32*)y, (const u32*)t, (const u32*)z, (u32*)ox, (u32*)oy,       \
         (u32*)ot, (u32*)oz, n, times);                                                        \
     return (int)cudaGetLastError();                                                           \

@@ -8,7 +8,7 @@
 // result is the one-thread kernel's, word for word.
 //
 // Used by csrc/ec.cu (K2 scan_proj, K4 map_pdouble) and csrc/edwards.cu (E1
-// ed_scalar_mul, E2 ed_map_add). No thread may return before an exchange: a
+// ed_scalar_mul, E2 ed_map_add, E3 ed_map_double). No thread may return before an exchange: a
 // warp returns only when all its lanes lie past the batch, and threads past it
 // compute on the last lane and store nothing (`GroupLane`).
 

@@ -15,7 +15,7 @@
 //   P3 f12_map          <- :383-385 `f12_mul_jit` / `f12_sq_jit` /
 //                          `f12_inv_jit`, :233 `f12_frobenius`, :204
 //                          `f12_conj` and :213 `f12_mul_by_034`, one op
-//                          (a template argument) over a batch of lanes
+//                          over a batch of lanes, on one of two routes
 // The port's plain engine would run P1 and P2 as hundreds of thousands of
 // torch launches a pairing; each is one launch here.
 //
@@ -62,12 +62,20 @@
 //     chunk at a time with cp.async, the next chunk in flight, so any number
 //     of pairs fits. One thread alone would be held to the chain of all
 //     12915 / 48970 multiplies (`one_thread_floor_ms`).
-//   P3: one thread per lane; at the 2^16 lanes chip_smoke.py runs, the issue
-//     rate of the multiply-adds bounds it. Its elements live in local
-//     memory: the tower's helpers below are __noinline__ and take references,
-//     so the compiler keeps one Fq2 multiply's words in registers at a time
-//     (a fully inlined Fq12 multiply would be 54 inlined products; field.cuh
-//     notes that inlining the Fq2 multiply alone once crashed the compiler).
+//   P3: two routes, picked by lane count (ops/pairing.py `P3_ROUTES`, from
+//     profile_pairing.py's sweep on an H100). The schedule route
+//     (f12_sched_kernel) runs the op's schedule (pairing_schedule.py
+//     `f12_op`: a multiply is one level of 54 products, an inverse 7 levels
+//     and the Fermat inverse) on a block of kPairT threads a lane, as P1 and
+//     P2 run theirs: at the one lane the verify equation's Gt check launches,
+//     one thread alone would run the whole chain of dependent multiplies
+//     while every other SM sits idle. The thread route (f12_map_kernel) runs
+//     one thread per lane; at many lanes the issue rate of the multiply-adds
+//     bounds it. Its elements live in local memory: the tower's helpers below
+//     are __noinline__ and take references, so the compiler keeps one Fq2
+//     multiply's words in registers at a time (a fully inlined Fq12 multiply
+//     would be 54 inlined products; field.cuh notes that inlining the Fq2
+//     multiply alone once crashed the compiler).
 // chip_smoke.py's build phase prints each kernel's registers, stack and
 // spills.
 
@@ -317,15 +325,15 @@ __device__ __forceinline__ void f12_store(u32* __restrict__ a, size_t plane, siz
 }
 
 // ---------------------------------------------------------------------------
-// P1, P2: one block of kPairT threads runs a schedule (ops/pairing_schedule.py),
-// level by level
+// P1, P2 and P3's schedule route: one block of kPairT threads runs a schedule
+// (ops/pairing_schedule.py), level by level
 // ---------------------------------------------------------------------------
 
 // The schedule table's header and entries, as ops/pairing_schedule.py
 // `_encode` writes them
 enum {
   kHdrSlots = 0, kHdrLevels, kHdrLevelOff, kHdrConsts, kHdrConstOff, kHdrIn, kHdrOut,
-  kHdrShared, kHdrProgram, kHdrProgramLen, kHdrZero
+  kHdrShared, kHdrProgram, kHdrProgramLen, kHdrZero, kHdrIn2, kHdrIn2Len
 };
 constexpr int kProdWords = 5, kOutWords = 3;
 enum LevelKind { kLevel = 0, kInverse = 1, kLine = 2 };
@@ -600,21 +608,55 @@ __device__ __forceinline__ void stage_lines(u32* dst, const u32* __restrict__ sr
   asm volatile("cp.async.commit_group;" ::: "memory");
 }
 
+// Copies the table's first `words` ints (the table is padded to a multiple of
+// 4, pairing_schedule.py `_encode`) into shared memory, 16 bytes a copy, a
+// batch of loads in flight per thread.
+constexpr int kCopyBatch = 4;
+__device__ __forceinline__ void copy_table(int* tab, const int* __restrict__ sched, int words) {
+  const int4* src = reinterpret_cast<const int4*>(sched);
+  int4* dst = reinterpret_cast<int4*>(tab);
+  const int n4 = (words + 3) / 4;
+#pragma unroll 1
+  for (int i = threadIdx.x; i < n4; i += kCopyBatch * kPairT) {
+    int4 v[kCopyBatch];
+#pragma unroll
+    for (int u = 0; u < kCopyBatch; u++)
+      if (i + u * kPairT < n4) v[u] = __ldg(src + i + u * kPairT);
+#pragma unroll
+    for (int u = 0; u < kCopyBatch; u++)
+      if (i + u * kPairT < n4) dst[i + u * kPairT] = v[u];
+  }
+}
+
+// Thread t < count writes Fq j = t of a lane's operand (word k of Fq j at
+// in[(8 j + k) stride + lane]) to slot first + j and its negation.
+__device__ __forceinline__ void load_operand(u32* S, int n_slots, int first, int count,
+                                             const u32* __restrict__ in, size_t stride, int lane,
+                                             int t) {
+  if (first < 0 || t < 0 || t >= count) return;
+  u32 v[8];
+#pragma unroll
+  for (int k = 0; k < 8; k++) v[k] = in[(size_t)(8 * t + k) * stride + lane];
+  slot_store(S, n_slots, first + t, v);
+}
+
 // The schedule `sched` (device memory) on this block: its table (all but the
 // program) into shared memory, the slots zeroed, the constants and the input
-// Fq12 (if the schedule takes one) written, then the program's levels in
-// order. `lines`: n_lines records, consumed one by each LINE level, staged
-// kLineChunk at a time into two buffers, the next chunk in flight while
-// this one is read. The output Fq12 goes to `out`.
+// operands (if the schedule takes them: `in` 12 Fq, `in2` the header's count)
+// written, then the program's levels in order. `lines`: n_lines records,
+// consumed one by each LINE level, staged kLineChunk at a time into two
+// buffers, the next chunk in flight while this one is read. The output Fq12
+// goes to `out`. Operands and output are lane `lane` of (rows, stride) words
+// (P1, P2: stride 1, lane 0; P3: a block a lane).
 __device__ __forceinline__ void run_schedule(const int* __restrict__ sched,
                                              const u32* __restrict__ in,
+                                             const u32* __restrict__ in2,
                                              const u32* __restrict__ lines, int n_lines,
-                                             u32* __restrict__ out) {
+                                             u32* __restrict__ out, size_t stride, int lane) {
   extern __shared__ uint4 smem[];
   int* tab = reinterpret_cast<int*>(smem);
   const int shared_words = sched[kHdrShared];
-#pragma unroll 1
-  for (int i = threadIdx.x; i < shared_words; i += kPairT) tab[i] = sched[i];
+  copy_table(tab, sched, shared_words);
   __syncthreads();
   const int n_slots = tab[kHdrSlots];
   u32* S = reinterpret_cast<u32*>(smem) + ((shared_words + 3) & ~3);
@@ -628,12 +670,9 @@ __device__ __forceinline__ void run_schedule(const int* __restrict__ sched,
     const int* c = consts + 9 * (i >> 3);
     S[8 * c[0] + (i & 7)] = (u32)c[1 + (i & 7)];
   }
-  if (tab[kHdrIn] >= 0 && threadIdx.x < 12) {
-    u32 v[8];
-#pragma unroll
-    for (int k = 0; k < 8; k++) v[k] = in[8 * threadIdx.x + k];
-    slot_store(S, n_slots, tab[kHdrIn] + threadIdx.x, v);
-  }
+  load_operand(S, n_slots, tab[kHdrIn], 12, in, stride, lane, (int)threadIdx.x);
+  load_operand(S, n_slots, tab[kHdrIn2], tab[kHdrIn2Len], in2, stride, lane,
+               (int)threadIdx.x - 12);
   if (n_lines > 0) stage_lines(lbuf, lines, min(kLineChunk, n_lines));
   __syncthreads();
   const int* levels = tab + tab[kHdrLevelOff];
@@ -675,7 +714,8 @@ __device__ __forceinline__ void run_schedule(const int* __restrict__ sched,
     __syncthreads();
   }
 #pragma unroll 1
-  for (int i = threadIdx.x; i < 96; i += kPairT) out[i] = S[8 * tab[kHdrOut] + i];
+  for (int i = threadIdx.x; i < 96; i += kPairT)
+    out[(size_t)i * stride + lane] = S[8 * tab[kHdrOut] + i];
 }
 
 // P1: the Miller loop's schedule over n_lines = n_folds x n_pairs line
@@ -683,14 +723,14 @@ __device__ __forceinline__ void run_schedule(const int* __restrict__ sched,
 __global__ void __launch_bounds__(kPairT, 1)
     pair_miller_loop_kernel(const int* __restrict__ sched, const u32* __restrict__ coeffs,
                             int n_lines, u32* __restrict__ out) {
-  run_schedule(sched, nullptr, coeffs, n_lines, out);
+  run_schedule(sched, nullptr, nullptr, coeffs, n_lines, out, 1, 0);
 }
 
 // P2: the final exponentiation's schedule on f (96 words).
 __global__ void __launch_bounds__(kPairT, 1)
     pair_final_exp_kernel(const int* __restrict__ sched, const u32* __restrict__ f,
                           u32* __restrict__ out) {
-  run_schedule(sched, f, nullptr, 0, out);
+  run_schedule(sched, f, nullptr, nullptr, 0, out, 1, 0);
 }
 
 // Dynamic shared memory above the default 48 KB needs the kernel's opt-in.
@@ -706,8 +746,8 @@ static int allow_smem(K kernel, int smem) {
 
 enum F12Op { kMul = 0, kSq = 1, kInv = 2, kFrob = 3, kConj = 4, kMulBy034 = 5 };
 
-// P3: one thread per lane. b: the second operand (96, n) for kMul, the
-// line's (c0, c3, c4) as (48, n) for kMulBy034; unused otherwise.
+// P3's thread route: one thread per lane. b: the second operand (96, n) for
+// kMul, the line's (c0, c3, c4) as (48, n) for kMulBy034; unused otherwise.
 template <int OP>
 __global__ void __launch_bounds__(kPairThreads)
     f12_map_kernel(const u32* __restrict__ a, const u32* __restrict__ b,
@@ -737,6 +777,15 @@ __global__ void __launch_bounds__(kPairThreads)
   f12_store(out, n, c, r);
 }
 
+// P3's schedule route: the op's schedule (pairing_schedule.py `f12_op`) on
+// one block of kPairT threads a lane, lane blockIdx.x of n. a: (96, n); b:
+// the schedule's second operand, (96, n) for mul, (48, n) for mul_by_034.
+__global__ void __launch_bounds__(kPairT)
+    f12_sched_kernel(const int* __restrict__ sched, const u32* __restrict__ a,
+                     const u32* __restrict__ b, u32* __restrict__ out, int n) {
+  run_schedule(sched, a, b, nullptr, 0, out, n, blockIdx.x);
+}
+
 }  // namespace kt
 
 using namespace kt;
@@ -763,6 +812,17 @@ extern "C" int kt_pair_final_exp(const void* sched, const void* f, int smem, voi
 
 // The block size P1 and P2 launch with (this build's kPairT).
 extern "C" int kt_pair_threads() { return kPairT; }
+
+// P3 on the schedule route: n blocks of kPairT threads; smem: the schedule's
+// dynamic shared memory.
+extern "C" int kt_f12_sched(const void* sched, const void* a, const void* b, int smem, void* out,
+                            int n, void* stream) {
+  const int rc = allow_smem(f12_sched_kernel, smem);
+  if (rc) return rc;
+  f12_sched_kernel<<<n, kPairT, smem, (cudaStream_t)stream>>>((const int*)sched, (const u32*)a,
+                                                              (const u32*)b, (u32*)out, n);
+  return (int)cudaGetLastError();
+}
 
 extern "C" int kt_f12_map(int op, const void* a, const void* b, const void* frob, int power,
                           void* out, int n, void* stream) {

@@ -37,13 +37,14 @@ _SIGNATURES = {
 _ED_SIGNATURES = {  # csrc/edwards.cu, per Edwards curve
     "kt_ed_scalar_mul_{c}": [P, P, P, P, I, P, P, P, P, P, I, I, P],
     "kt_ed_map_add_{c}": [P] * 12 + [I, I, I, P],
-    "kt_ed_map_double_{c}": [P] * 8 + [I, I, P],
+    "kt_ed_map_double_{c}": [P] * 8 + [I, I, I, P],
 }
 _PAIR_SIGNATURES = {  # csrc/pairing.cu
     "kt_pair_miller_loop": [P, P, I, I, P, P],
     "kt_pair_final_exp": [P, P, I, P, P],
     "kt_pair_threads": [],
     "kt_f12_map": [I, P, P, P, I, P, I, P],
+    "kt_f12_sched": [P, P, P, I, P, I, P],
 }
 _FIELD_SIGNATURE = [P, P, P, I, I, P]
 _PROBE_SIGNATURES = {"kt_imad_probe_info": [I, P], "kt_imad_probe": [I, I, I, P, P, P],
@@ -164,7 +165,7 @@ def _demangle(name: str) -> str:
     for kern in ("scan_mixed_kernel", "scan_proj_group_kernel", "scan_proj_kernel",
                  "pdouble_group_kernel", "padd_kernel", "pdouble_kernel", "field_op_kernel",
                  "ed_scalar_mul_kernel", "ed_map_add_kernel", "ed_map_double_kernel",
-                 "pair_miller_loop_kernel", "pair_final_exp_kernel", "f12_map_kernel",
+                 "pair_miller_loop_kernel", "pair_final_exp_kernel", "f12_map_kernel", "f12_sched_kernel",
                  "fp_mul_call", "imad_wide_probe_kernel", "imad_probe_kernel",
                  "mul_latency_kernel", "empty_kernel", "spin_kernel"):
         if kern in name:

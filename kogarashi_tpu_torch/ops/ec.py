@@ -13,7 +13,7 @@ int32 words in Montgomery form, canonical in and out.
 
 Dispatch: a CUDA tensor launches the kernel (and counts the launch in
 `LAUNCHES`, K2's and K4's also by lane group in `GROUP_LAUNCHES`, where
-`ops/edwards.py` counts E1's and E2's); a CPU tensor runs the plain version.
+`ops/edwards.py` counts E1-E3's); a CPU tensor runs the plain version.
 There is no fallback from one to the other.
 """
 
@@ -30,7 +30,7 @@ from . import _build
 
 KERNELS = ("scan_mixed", "scan_proj", "map_padd", "map_pdouble")
 LAUNCHES: dict = {f"{k}_{c}": 0 for k in KERNELS for c in ("g1", "g2", "grumpkin")}
-GROUP_LAUNCHES: dict = {}  # "scan_proj_g1" -> {g: launches}: K2, K4, E1, E2
+GROUP_LAUNCHES: dict = {}  # "scan_proj_g1" -> {g: launches}: K2, K4, E1-E3
 
 
 def reset_launches() -> None:
@@ -181,7 +181,7 @@ def _check(curve: Curve, ts, ndim: int):
 
 
 # ---------------------------------------------------------------------------
-# lane groups (csrc/lane_group.cuh): K2 and K4 (csrc/ec.cu), E1 and E2
+# lane groups (csrc/lane_group.cuh): K2 and K4 (csrc/ec.cu), E1-E3
 # (csrc/edwards.cu) spread one lane's point op over g threads of a warp where
 # one thread per lane would leave the card idle
 # ---------------------------------------------------------------------------
@@ -193,8 +193,8 @@ def _check(curve: Curve, ts, ndim: int):
 # csrc/edwards.cu's KT_ED_GROUPS), and no other (1: the one-thread kernel).
 # Grumpkin builds G1's sizes; its K2 rows come from its own shapes, those of
 # one Nova secondary commit (78982 points). Jubjub's rows cover the signature
-# paths' shapes (E1 at 2n lanes, E2 at n for n signatures) and the lane
-# counts between and beyond them.
+# paths' shapes (E1 at 2n lanes, E2 and E3 at n for n signatures) and the
+# lane counts between and beyond them.
 LANE_GROUPS = {
     ("scan_proj", "g1"): ((32768, 1), (8192, 2), (4096, 4), (0, 8)),
     ("scan_proj", "g2"): ((16384, 1), (2048, 8), (0, 16)),
@@ -204,6 +204,7 @@ LANE_GROUPS = {
     ("map_pdouble", "grumpkin"): ((8192, 1), (0, 4)),
     ("ed_scalar_mul", "jubjub"): ((32768, 1), (16384, 2), (4096, 4), (0, 8)),
     ("ed_map_add", "jubjub"): ((16384, 1), (8192, 2), (4096, 4), (0, 8)),
+    ("ed_map_double", "jubjub"): ((32768, 1), (16384, 2), (0, 4)),
 }
 
 
@@ -213,7 +214,7 @@ def groups(kernel: str, curve: Curve) -> tuple:
 
 
 def lane_group(kernel: str, curve: Curve, C: int) -> int:
-    """Threads per lane for a K2, K4, E1 or E2 launch over C lanes (LANE_GROUPS)."""
+    """Threads per lane for a K2, K4 or E1-E3 launch over C lanes (LANE_GROUPS)."""
     return next(g for least, g in LANE_GROUPS[(kernel, curve.name)] if C >= least)
 
 
@@ -241,7 +242,7 @@ def _launch(kernel: str, curve: Curve, ins, outs, *ints, group: int | None = Non
 
 def _count(launches: dict, key: str, group: int | None) -> None:
     """One launch of `key` in `launches`, and under its lane group (K2, K4,
-    E1, E2) in GROUP_LAUNCHES."""
+    E1-E3) in GROUP_LAUNCHES."""
     launches[key] += 1
     if group is not None:
         by = GROUP_LAUNCHES.setdefault(key, {})

@@ -9,8 +9,8 @@ word tensor in Montgomery form, canonical in and out; scalars (16, n) int32
 standard-form 16-bit limbs (`fields.spec.ints_to_limbs16`).
 
 Dispatch: a CUDA tensor launches the kernel (and counts the launch in
-`LAUNCHES`, E1's and E2's also by lane group in `ec.GROUP_LAUNCHES`); a CPU
-tensor runs the plain version. There is no fallback from one to the other.
+`LAUNCHES`, and by lane group in `ec.GROUP_LAUNCHES`); a CPU tensor runs the
+plain version. There is no fallback from one to the other.
 """
 
 from __future__ import annotations
@@ -106,8 +106,8 @@ def map_double_plain(curve, p, times: int = 1):
 
 
 def _launch(kernel: str, curve, ptrs, *ints, group: int | None = None):
-    """One launch of kernel_curve; `group`: E1's and E2's lane group, passed
-    after the other ints and counted in `ec.GROUP_LAUNCHES`."""
+    """One launch of kernel_curve; `group`: the lane group, passed after the
+    other ints and counted in `ec.GROUP_LAUNCHES`."""
     key = f"{kernel}_{curve.name}"
     if group is not None:
         ints += (group,)
@@ -158,14 +158,17 @@ def map_add(curve, p, q, neg: bool = False, group: int | None = None):
     return out
 
 
-def map_double(curve, p, times: int = 1):
-    """E3. `times` doublings in a row, fused; (8, n)."""
-    if not ec._check(curve, p, 2):
-        return map_double_plain(curve, p, times)
+def map_double(curve, p, times: int = 1, group: int | None = None):
+    """E3. `times` doublings in a row, fused; (8, n). `group`: threads per
+    lane, by default `ec.lane_group`'s."""
+    on_card = ec._check(curve, p, 2)
     n = p[0].shape[1]
+    g = ec._group("ed_map_double", curve, n, group)
+    if not on_card:
+        return map_double_plain(curve, p, times)
     out = _empty4(p[0], n)
     if n:
-        _launch("ed_map_double", curve, (*p, *out), n, times)
+        _launch("ed_map_double", curve, (*p, *out), n, times, group=g)
     return out
 
 
@@ -181,9 +184,21 @@ MULS = {"ed_scalar_mul": 256 * 16 + 2, "ed_map_add": 10, "ed_map_double": 7}
 # dependent multiply levels of one ladder bit (E1): edouble 2 (x^2, y^2, z^2,
 # x y; the four outputs), the add of the fixed base 2 (its five products; the
 # four outputs); of one E2 add, 3 (the five products, the multiply by d, the
-# four outputs). The critical-path floors chip_smoke.py logs.
+# four outputs); of one E3 doubling, 2 (x^2, y^2, z^2, x y; the outputs).
+# The critical-path floors chip_smoke.py logs (`floor_ms`).
 LADDER_LEVELS = 4
 ADD_LEVELS = 3
+DOUBLE_LEVELS = 2
+
+
+def floor_ms(kernel: str, mul_cycles: float, sm_clock_hz: float, launch_ms: float, times: int = 1):
+    """A lane's critical-path floor: its dependent levels (E1: LADDER_LEVELS
+    a bit over 256 bits; E2: ADD_LEVELS; E3: DOUBLE_LEVELS a doubling over
+    `times`), each at least one dependent multiply of `mul_cycles`, plus an
+    empty launch."""
+    levels = {"ed_scalar_mul": LADDER_LEVELS * 256, "ed_map_add": ADD_LEVELS,
+              "ed_map_double": DOUBLE_LEVELS * times}[kernel]
+    return levels * mul_cycles / sm_clock_hz * 1e3 + launch_ms
 
 
 def bound_ms(kernel: str, n: int, sm_clock_hz: float, times: int = 1, base_lanes: int | None = None):

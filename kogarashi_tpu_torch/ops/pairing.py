@@ -10,9 +10,12 @@ JAX package runs them as XLA programs (no Pallas kernel); here the Miller
 loop (P1) and the final exponentiation (P2) are one launch each, one block
 of threads (csrc/pairing.cu `kPairT`) running a schedule
 (`pairing_schedule.py`: each tower op as one level of independent Fq
-products), and the tower ops one launch over a batch of lanes (P3). As
-there, the host keeps the G2 precompute (`pyref.pairing_fast.G2Prepared`)
-and the scaling of the line coefficients by P's coordinates.
+products), and the tower ops one launch over a batch of lanes (P3): below
+a lane count `P3_ROUTES` sets, on the schedule route (the op's schedule,
+`pairing_schedule.f12_op`, a block of threads a lane), above it on the
+thread route (one thread a lane). As there, the host keeps the G2
+precompute (`pyref.pairing_fast.G2Prepared`) and the scaling of the line
+coefficients by P's coordinates.
 
 Layout: an Fq12 is (96, *batch) int32 words, its 12 Fq components in
 `Fq12.to_fq_list` order, 8 Montgomery words each (R = 2^256), canonical in
@@ -23,8 +26,8 @@ component at once, and each Karatsuba level's independent products go
 through one multiply.
 
 Dispatch: a CUDA tensor launches the kernel (and counts the launch in
-`LAUNCHES`); a CPU tensor runs the plain version. There is no fallback from
-one to the other.
+`LAUNCHES`, P3's also by route in `ROUTE_LAUNCHES`); a CPU tensor runs the
+plain version. There is no fallback from one to the other.
 """
 
 from __future__ import annotations
@@ -45,6 +48,25 @@ KERNELS = ("pair_miller_loop", "pair_final_exp", "f12_map")
 LAUNCHES: dict = {k: 0 for k in KERNELS}
 # P3's ops, by the code csrc/pairing.cu's `F12Op` gives them
 OPS = {"mul": 0, "sq": 1, "inv": 2, "frobenius": 3, "conj": 4, "mul_by_034": 5}
+# P3's routes: "schedule" (csrc/pairing.cu f12_sched_kernel, the op's
+# schedule on a block of kPairT threads a lane) and "thread" (f12_map_kernel,
+# one thread a lane). op -> ((lanes at least, route), ...): a launch over n
+# lanes takes the route of the first row whose bound n meets. The rows come
+# from timing both routes at every op from 1 to 2^16 lanes on an H100
+# (profile_pairing.py, PERF.md): each threshold is the first lane count
+# swept at which the thread route was the faster, as it was at every count
+# above. conj makes no product, and one thread a lane was faster at every
+# count.
+ROUTES = ("schedule", "thread")
+P3_ROUTES = {
+    "mul": ((6144, "thread"), (0, "schedule")),
+    "sq": ((5120, "thread"), (0, "schedule")),
+    "inv": ((1024, "thread"), (0, "schedule")),
+    "frobenius": ((3072, "thread"), (0, "schedule")),
+    "conj": ((0, "thread"),),
+    "mul_by_034": ((5120, "thread"), (0, "schedule")),
+}
+ROUTE_LAUNCHES: dict = {r: 0 for r in ROUTES}
 
 F2 = mont.field(FQ, 2)
 F = F2.base
@@ -53,6 +75,13 @@ F = F2.base
 def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+    for r in ROUTES:
+        ROUTE_LAUNCHES[r] = 0
+
+
+def p3_route(op: str, n: int) -> str:
+    """P3's route for `op` over n lanes (P3_ROUTES)."""
+    return next(route for least, route in P3_ROUTES[op] if n >= least)
 
 
 # ---------------------------------------------------------------------------
@@ -329,12 +358,13 @@ def _on_card(*ts) -> bool:
     raise ValueError(f"unsupported device {dev}")
 
 
-def _launch(kernel: str, device, *args):
+def _launch(kernel: str, device, entry: str, *args):
+    """One launch of `kernel` through the library's kt_`entry`."""
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream().cuda_stream
         args = [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args]
-        rc = getattr(_build.lib(), f"kt_{kernel}")(*args, stream)
-    _build.check(rc, kernel)
+        rc = getattr(_build.lib(), f"kt_{entry}")(*args, stream)
+    _build.check(rc, entry)
     LAUNCHES[kernel] += 1
 
 
@@ -357,12 +387,15 @@ def map_plain(op: str, a, b=None, power: int = 0):
     return _w(r)
 
 
-def f12_map(op: str, a, b=None, power: int = 0):
+def f12_map(op: str, a, b=None, power: int = 0, route: str | None = None):
     """P3: one tower op (a key of OPS) over the lanes of a (96, *batch); b:
     the second operand (96, *batch) of "mul", the line (48, *batch) of
-    "mul_by_034"; power: frobenius's."""
+    "mul_by_034"; power: frobenius's. `route`: "schedule" or "thread", by
+    default `p3_route`'s."""
     if op not in OPS:
         raise ValueError(f"unknown op {op!r}: one of {list(OPS)}")
+    if route is not None and route not in ROUTES:
+        raise ValueError(f"unknown route {route!r}: one of {list(ROUTES)}")
     if (b is None) != (op not in ("mul", "mul_by_034")):
         raise ValueError(f"{op} takes {'a second operand' if b is None else 'one operand'}")
     _check_fq12(a)
@@ -377,8 +410,15 @@ def f12_map(op: str, a, b=None, power: int = 0):
     b2 = a2 if b is None else b.reshape(b.shape[0], n).contiguous()
     out = torch.empty_like(a2)
     if n:
-        _launch("f12_map", a.device, OPS[op], a2, b2, frobenius_table(a.device),
-                power % 12, out, n)
+        route = route or p3_route(op, n)
+        if route == "schedule":
+            sched = schedule.f12_op(op, power)
+            _launch("f12_map", a.device, "f12_sched", _schedule_table(a.device, sched), a2, b2,
+                    sched.smem_bytes(), out, n)
+        else:
+            _launch("f12_map", a.device, "f12_map", OPS[op], a2, b2, frobenius_table(a.device),
+                    power % 12, out, n)
+        ROUTE_LAUNCHES[route] += 1
     return out.reshape(a.shape)
 
 
@@ -428,8 +468,8 @@ def miller_loop_coeffs(coeffs):
     sched = schedule.miller_loop(coeffs.shape[1])
     coeffs = coeffs.contiguous()
     out = torch.empty(96, dtype=torch.int32, device=coeffs.device)
-    _launch("pair_miller_loop", coeffs.device, _schedule_table(coeffs.device, sched), coeffs,
-            sched.n_lines(), sched.smem_bytes(), out)
+    _launch("pair_miller_loop", coeffs.device, "pair_miller_loop", _schedule_table(coeffs.device, sched),
+            coeffs, sched.n_lines(), sched.smem_bytes(), out)
     return out
 
 
@@ -453,7 +493,8 @@ def final_exp_device(f):
         return final_exp_plain(f)
     sched = schedule.final_exp()
     out = torch.empty(96, dtype=torch.int32, device=f.device)
-    _launch("pair_final_exp", f.device, _schedule_table(f.device, sched), f.contiguous(), sched.smem_bytes(), out)
+    _launch("pair_final_exp", f.device, "pair_final_exp", _schedule_table(f.device, sched), f.contiguous(),
+            sched.smem_bytes(), out)
     return out
 
 
@@ -476,10 +517,13 @@ def gt_eq_device(f, target) -> bool:
 # ---------------------------------------------------------------------------
 
 _INV_FQ = 256 + bin(FQ.p - 2).count("1")  # fp_inv: a square per bit, a multiply per set bit
-# Fq multiplies of each tower op as csrc/pairing.cu's one-thread code (P3, and
-# P1 and P2 before their schedules) does them (an Fq2 multiply is 3, a square 2)
+# Fq multiplies each tower op needs (an Fq2 multiply is 3, a square 2), as
+# csrc/pairing.cu's one-thread code and the schedules make them; frobenius 5
+# Fq2 products by constants, c1 w and c2 w formed on the host as the
+# schedules take them (the one-thread code makes those two products itself:
+# 21)
 MULS = {
-    "mul": 54, "sq": 36, "mul_by_034": 39, "frobenius": 21, "conj": 0,
+    "mul": 54, "sq": 36, "mul_by_034": 39, "frobenius": 15, "conj": 0,
     "inv": 36 + (6 + 9 + 9 + 9 + 4 + _INV_FQ) + 36,  # f6 squares, f6_inv, f6 products
 }
 
@@ -496,8 +540,12 @@ def kernel_muls(kernel: str, n_pairs: int = 1, op: str = "mul", lanes: int = 1) 
     return MULS[op] * lanes
 
 
-def _schedule(kernel: str, n_pairs: int = 1):
-    return schedule.miller_loop(n_pairs) if kernel == "pair_miller_loop" else schedule.final_exp()
+def _schedule(kernel: str, n_pairs: int = 1, op: str = "mul", power: int = 0):
+    if kernel == "pair_miller_loop":
+        return schedule.miller_loop(n_pairs)
+    if kernel == "pair_final_exp":
+        return schedule.final_exp()
+    return schedule.f12_op(op, power)
 
 
 def schedule_muls(kernel: str, n_pairs: int = 1) -> int:
@@ -537,17 +585,18 @@ def one_thread_floor_ms(kernel: str, mul_cycles: float, sm_clock_hz: float, laun
     return kernel_muls(kernel, n_pairs) * mul_cycles / sm_clock_hz * 1e3 + launch_ms
 
 
-def depth_levels(kernel: str, n_pairs: int = 1) -> tuple:
-    """(levels of products, Fermat inverses) P1's or P2's schedule runs one
-    after another."""
-    return _schedule(kernel, n_pairs).depth()
+def depth_levels(kernel: str, n_pairs: int = 1, op: str = "mul", power: int = 0) -> tuple:
+    """(levels of products, Fermat inverses) P1's, P2's or P3's `op` schedule
+    (its schedule route) runs one after another."""
+    return _schedule(kernel, n_pairs, op, power).depth()
 
 
 def depth_floor_ms(kernel: str, mul_cycles: float, call_cycles: float, sm_clock_hz: float,
-                   launch_ms: float, n_pairs: int = 1):
-    """P1's or P2's critical-path floor on a block: its schedule's levels,
-    each at least one dependent inline multiply (`mul_cycles`), plus each
-    Fermat inverse's chain on one thread (_INV_FQ multiplies through
-    fp_mul_call, `call_cycles` each), plus an empty launch."""
-    levels, inverses = depth_levels(kernel, n_pairs)
+                   launch_ms: float, n_pairs: int = 1, op: str = "mul"):
+    """P1's, P2's or P3's `op` (on its schedule route) critical-path floor on
+    a block: its schedule's levels of products, each at least one dependent
+    inline multiply (`mul_cycles`), plus each Fermat inverse's chain on one
+    thread (_INV_FQ multiplies through fp_mul_call, `call_cycles` each), plus
+    an empty launch."""
+    levels, inverses = depth_levels(kernel, n_pairs, op)
     return (levels * mul_cycles + inverses * _INV_FQ * call_cycles) / sm_clock_hz * 1e3 + launch_ms

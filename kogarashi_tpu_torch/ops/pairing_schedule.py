@@ -1,6 +1,7 @@
-"""The schedules that P1 (`pair_miller_loop`) and P2 (`pair_final_exp`) run
-on a block of threads (csrc/pairing.cu `run_schedule`): each Fq12 tower op
-as one level of independent Fq products and the sums around them, as data.
+"""The schedules that P1 (`pair_miller_loop`), P2 (`pair_final_exp`) and P3's
+schedule route (`f12_op`: one tower op, a block a lane) run on a block of
+threads (csrc/pairing.cu `run_schedule`): each Fq12 tower op as one level of
+independent Fq products and the sums around them, as data.
 
 A level is N products m_k = A_k * B_k, each operand a signed sum of Fq
 slots (sum of c_i x_i with small integers c_i: the Karatsuba pre-additions,
@@ -16,8 +17,10 @@ canonical, so the order of the sums changes no word of the result.
 
 The table the card reads (int32, `Schedule.table`):
   header (HDR_WORDS): n_slots, n_levels, levels' offset, n_consts, consts'
-    offset, input slot (-1: none), output slot, words copied to shared
-    memory, program offset, program length, the zero slot
+    offset, input slot (-1: none; 12 Fq from there), output slot, words
+    copied to shared memory, program offset, program length, the zero slot,
+    the second input's slot (-1: none) and its count of Fq (P3's mul: the
+    second Fq12, 12; mul_by_034: the line's c0, c3, c4, 6)
   per level 5 ints: kind (LEVEL, INVERSE, LINE), then for LEVEL and LINE
     n_prod, products' offset, n_out, outputs' offset; for INVERSE the source
     and destination slots
@@ -27,6 +30,7 @@ The table the card reads (int32, `Schedule.table`):
     coefficient -c on slot s is c on s's negation, slot n_slots + s
   per constant 9 ints: slot, 8 Montgomery words (the negations' too)
   program: level ids, in order (read from device memory, not copied)
+  zeros to a multiple of 4 words (the kernel copies 16 bytes at a time)
 Slots 0..n_slots-1 live in shared memory, 8 words each, and slot n_slots +
 s holds q - (slot s), written with it, so a sum is only additions; the last
 slot is the zero slot, never written, which pads a chunk of terms. A LINE
@@ -47,7 +51,7 @@ from ..pyref.pairing_fast import HARD_PART_EXP, SIX_U_PLUS_2_NAF
 from ..pyref.tower import FROB_FQ6_C1, FROB_FQ6_C2, FROB_FQ12_C1
 
 LEVEL, INVERSE, LINE = 0, 1, 2
-HDR_WORDS = 11
+HDR_WORDS = 13
 PROD_WORDS, OUT_WORDS = 5, 3
 LINE_WORDS = 48  # one line record: c0, c3, c4, 16 words each
 LINE_CHUNK = 16  # records staged into shared memory at a time (csrc/pairing.cu kLineChunk)
@@ -227,6 +231,8 @@ class Schedule:
     consts: list  # [(slot, int value)]
     in_slot: int
     out_slot: int
+    in2_slot: int = -1
+    in2_len: int = 0
 
     def __post_init__(self):
         self.table = _encode(self)
@@ -240,9 +246,10 @@ class Schedule:
         return int(self.table[7])
 
     def depth(self) -> tuple:
-        """(levels of products, inverse levels) the program runs in order."""
+        """(levels of products, inverse levels) the program runs in order; a
+        level of outputs alone (P3's conj) makes no product."""
         inv = sum(self.levels[i].kind == INVERSE for i in self.program)
-        return len(self.program) - inv, inv
+        return sum(bool(self.levels[i].prods) for i in self.program), inv
 
     def n_lines(self) -> int:
         return sum(self.levels[i].kind == LINE for i in self.program)
@@ -322,7 +329,7 @@ def _encode(s: Schedule) -> np.ndarray:
     const_off = term_off + len(terms)
     prog_off = const_off + 2 * 9 * len(s.consts)
     words = [s.n_slots, len(level_rows), lev_off, 2 * len(s.consts), const_off, s.in_slot, s.out_slot,
-             prog_off, prog_off, len(s.program), s.zero_slot]
+             prog_off, prog_off, len(s.program), s.zero_slot, s.in2_slot, s.in2_len]
     for r in level_rows:
         if r[0] != INVERSE:
             r = [r[0], r[1], prod_off + PROD_WORDS * r[2], r[3], out_off + OUT_WORDS * r[4]]
@@ -338,6 +345,7 @@ def _encode(s: Schedule) -> np.ndarray:
         for (slot, _), w in zip(consts, enc):
             words += [slot] + [int(x) for x in w.view(np.int32)]
     words += list(s.program)
+    words += [0] * (-len(words) % 4)
     return np.asarray(words, dtype=np.int64).astype(np.int32)
 
 
@@ -390,50 +398,74 @@ def miller_loop(n_pairs: int) -> Schedule:
 # slots: the result R, the power T, the input A, U (f^-1, then frob^2(t)),
 # the inverse's pieces, the Frobenius constants, then the products
 FE_R, FE_T, FE_A, FE_U = 0, 12, 24, 36
-FE_S6, FE_T6, FE_N, FE_M, FE_D, FE_DI, FE_D6 = 48, 54, 60, 62, 63, 64, 66
+FE_S6 = 48  # the inverse's INV_WORK pieces
 FE_C = 72  # FROB_FQ6_C1[2], FROB_FQ6_C2[2], FROB_FQ12_C1[2], and the first two times the third
 FE_PROD = 82
 FE_SQ, FE_MUL, FE_MULSQ = 0, 1, 2
 HARD_BITS = [(HARD_PART_EXP >> i) & 1 for i in range(HARD_PART_EXP.bit_length())]
 
 
-def _frob2_consts() -> list:
-    c1, c2, w = FROB_FQ6_C1[2], FROB_FQ6_C2[2], FROB_FQ12_C1[2]
+def _frob_consts(power: int, first: int) -> list:
+    """x -> x^(q^power)'s constants FROB_FQ6_C1, FROB_FQ6_C2, FROB_FQ12_C1 of
+    that power (w), and c1 w and c2 w, as 10 Fq slots from `first`."""
+    c1, c2, w = FROB_FQ6_C1[power % 6], FROB_FQ6_C2[power % 6], FROB_FQ12_C1[power]
     vals = []
     for c in (c1, c2, w, c1 * w, c2 * w):
         vals += [c.c0.v, c.c1.v]
-    return [(FE_C + k, v) for k, v in enumerate(vals)]
+    return [(first + k, v) for k, v in enumerate(vals)]
+
+
+def _frobenius(P, t, c, odd: bool):
+    """t^(q^power) from its constants c = (c1, c2, w, c1 w, c2 w), each an
+    Fq2 of Lins: every Fq2 conjugated first if the power is odd, then c0.c1 c1,
+    c0.c2 c2, c1.c0 w, c1.c1 c1 w, c1.c2 c2 w."""
+    if odd:
+        t = tuple(tuple((x[0], -x[1]) for x in half) for half in t)
+    return ((t[0][0], f2_mul(P, t[0][1], c[0]), f2_mul(P, t[0][2], c[1])),
+            (f2_mul(P, t[1][0], c[2]), f2_mul(P, t[1][1], c[3]), f2_mul(P, t[1][2], c[4])))
+
+
+INV_WORK = 24  # slots the inverse's pieces take
+
+
+def _inverse_levels(x: int, a_slot: int, w: int, dst: int) -> list:
+    """The levels of f^-1 (csrc/pairing.cu f12_inv, f6_inv, f2_inv) for f in
+    the slots from a_slot, to dst, with its pieces in the INV_WORK slots from
+    w: s = a0^2 - v a1^2, then s^-1 down the tower to one Fermat inverse in
+    Fq, then (a0 s^-1, -a1 s^-1); products from slot x."""
+    a = fq12_at(a_slot)
+    s6, t6, d6 = fq6_at(w), fq6_at(w + 6), fq6_at(w + 18)
+    n, di = fq2_at(w + 12), fq2_at(w + 16)
+    m, d = Lin.slot(w + 14), Lin.slot(w + 15)
+    return [
+        _level(x, lambda P: f6_sub(f6_mul(P, a[0], a[0]), f6_mul_nonres(f6_mul(P, a[1], a[1]))), w),
+        _level(x, lambda P: [
+            f2_sub(f2_sq(P, s6[0]), f2_mul_xi(f2_mul(P, s6[1], s6[2]))),
+            f2_sub(f2_mul_xi(f2_sq(P, s6[2])), f2_mul(P, s6[0], s6[1])),
+            f2_sub(f2_sq(P, s6[1]), f2_mul(P, s6[0], s6[2]))], w + 6),
+        _level(x, lambda P: f2_add(f2_mul(P, s6[0], t6[0]),
+                                   f2_mul_xi(f2_add(f2_mul(P, s6[2], t6[1]), f2_mul(P, s6[1], t6[2])))), w + 12),
+        _level(x, lambda P: P.mul(n[0], n[0]) + P.mul(n[1], n[1]), w + 14),
+        Level(INVERSE, [], [], (w + 14, w + 15)),
+        _level(x, lambda P: (P.mul(n[0], d), -P.mul(n[1], d)), w + 16),
+        _level(x, lambda P: [f2_mul(P, t6[k], di) for k in range(3)], w + 18),
+        _level(x, lambda P: (f6_mul(P, a[0], d6), f6_neg(f6_mul(P, a[1], d6))), dst),
+    ]
 
 
 @lru_cache(maxsize=None)
 def final_exp() -> Schedule:
     r, t, a, u = fq12_at(FE_R), fq12_at(FE_T), fq12_at(FE_A), fq12_at(FE_U)
-    s6, t6, d6 = fq6_at(FE_S6), fq6_at(FE_T6), fq6_at(FE_D6)
-    n, di = fq2_at(FE_N), fq2_at(FE_DI)
-    m, d = Lin.slot(FE_M), Lin.slot(FE_D)
-    c1, c2, w, c1w, c2w = (fq2_at(FE_C + 2 * k) for k in range(5))
+    c = tuple(fq2_at(FE_C + 2 * k) for k in range(5))
     x = FE_PROD
     levels = [
         _level(x, lambda P: [f12_sq(P, t)], FE_T),
         _level(x, lambda P: [f12_mul(P, r, t)], FE_R),
         _level(x, lambda P: [f12_mul(P, r, t), f12_sq(P, t)], FE_R),  # R then T: slots 0-23
-        # f^-1 (csrc/pairing.cu f12_inv, f6_inv, f2_inv): s = a0^2 - v a1^2
-        _level(x, lambda P: f6_sub(f6_mul(P, a[0], a[0]), f6_mul_nonres(f6_mul(P, a[1], a[1]))), FE_S6),
-        _level(x, lambda P: [
-            f2_sub(f2_sq(P, s6[0]), f2_mul_xi(f2_mul(P, s6[1], s6[2]))),
-            f2_sub(f2_mul_xi(f2_sq(P, s6[2])), f2_mul(P, s6[0], s6[1])),
-            f2_sub(f2_sq(P, s6[1]), f2_mul(P, s6[0], s6[2]))], FE_T6),
-        _level(x, lambda P: f2_add(f2_mul(P, s6[0], t6[0]),
-                                   f2_mul_xi(f2_add(f2_mul(P, s6[2], t6[1]), f2_mul(P, s6[1], t6[2])))), FE_N),
-        _level(x, lambda P: P.mul(n[0], n[0]) + P.mul(n[1], n[1]), FE_M),
-        Level(INVERSE, [], [], (FE_M, FE_D)),
-        _level(x, lambda P: (P.mul(n[0], d), -P.mul(n[1], d)), FE_DI),
-        _level(x, lambda P: [f2_mul(P, t6[k], di) for k in range(3)], FE_D6),
-        _level(x, lambda P: (f6_mul(P, a[0], d6), f6_neg(f6_mul(P, a[1], d6))), FE_U),
+        *_inverse_levels(x, FE_A, FE_S6, FE_U),
         # t = conj(f) f^-1, then t = frob^2(t) t
         _level(x, lambda P: f12_mul(P, f12_conj(a), u), FE_T),
-        _level(x, lambda P: ((t[0][0], f2_mul(P, t[0][1], c1), f2_mul(P, t[0][2], c2)),
-                             (f2_mul(P, t[1][0], w), f2_mul(P, t[1][1], c1w), f2_mul(P, t[1][2], c2w))), FE_U),
+        _level(x, lambda P: _frobenius(P, t, c, False), FE_U),
         _level(x, lambda P: f12_mul(P, u, t), FE_T),
     ]
     program = list(range(3, len(levels)))
@@ -444,5 +476,52 @@ def final_exp() -> Schedule:
         elif bit:
             program.append(FE_MUL)
     n_slots = FE_PROD + max(len(lv.prods) for lv in levels) + 1  # the products, then the zero slot
-    return Schedule("pair_final_exp", n_slots, levels, program, [(FE_R, 1)] + _frob2_consts(),
+    return Schedule("pair_final_exp", n_slots, levels, program, [(FE_R, 1)] + _frob_consts(2, FE_C),
                     FE_A, FE_R)
+
+
+# ---------------------------------------------------------------------------
+# P3's schedule route: one tower op on one lane's block. The input Fq12 A in
+# slots 0-11, the second operand B from slot 12 (mul: an Fq12; mul_by_034:
+# the line's c0, c3, c4), then the op's constants or the inverse's pieces,
+# then the products; the result goes to A's slots.
+# ---------------------------------------------------------------------------
+
+OP_A, OP_B = 0, 12
+F12_OPS = ("mul", "sq", "inv", "frobenius", "conj", "mul_by_034")
+
+
+def f12_op(op: str, power: int = 0) -> Schedule:
+    """P3's `op` (one of F12_OPS; frobenius at `power`, mod 12) as a schedule."""
+    return _f12_op(op, power % 12 if op == "frobenius" else 0)
+
+
+@lru_cache(maxsize=None)
+def _f12_op(op: str, power: int) -> Schedule:
+    a = fq12_at(OP_A)
+    consts, in2 = [], (-1, 0)
+    if op == "mul":
+        in2, x = (OP_B, 12), OP_B + 12
+        levels = [_level(x, lambda P: f12_mul(P, a, fq12_at(OP_B)), OP_A)]
+    elif op == "sq":
+        x = OP_B
+        levels = [_level(x, lambda P: f12_sq(P, a), OP_A)]
+    elif op == "mul_by_034":
+        in2, x = (OP_B, 6), OP_B + 6
+        c0, c3, c4 = (fq2_at(OP_B + 2 * k) for k in range(3))
+        levels = [_level(x, lambda P: f12_mul_by_034(P, a, c0, c3, c4), OP_A)]
+    elif op == "conj":
+        x = OP_B
+        levels = [_level(x, lambda P: f12_conj(a), OP_A)]
+    elif op == "frobenius":
+        x, consts = OP_B + 10, _frob_consts(power, OP_B)
+        c = tuple(fq2_at(OP_B + 2 * k) for k in range(5))
+        levels = [_level(x, lambda P: _frobenius(P, a, c, power % 2 == 1), OP_A)]
+    elif op == "inv":
+        x = OP_B + INV_WORK
+        levels = _inverse_levels(x, OP_A, OP_B, OP_A)
+    else:
+        raise ValueError(f"unknown op {op!r}: one of {list(F12_OPS)}")
+    n_slots = x + max(len(lv.prods) for lv in levels) + 1  # the products, then the zero slot
+    name = f"f12_map {op}" + (f" {power}" if op == "frobenius" else "")
+    return Schedule(name, n_slots, levels, list(range(len(levels))), consts, OP_A, OP_A, *in2)

@@ -1,15 +1,15 @@
-"""Time E1 (`ed_scalar_mul`) and E2 (`ed_map_add`) at every candidate lane group on one GPU.
+"""Time E1 (`ed_scalar_mul`), E2 (`ed_map_add`) and E3 (`ed_map_double`) at every candidate lane group on one GPU.
 
     python3 -m kogarashi_tpu_torch.profile_edwards [--baseline DIR]
 
-Builds csrc/edwards.cu once more with every group size of CANDIDATE_G for E1
-and E2 (-DKT_ED_GROUPS; its ptxas registers and spills printed), then times
-E1 at E1_LANES and E2 (p - q) at E2_LANES lanes at each g through that
-build, and through the package at the g its rule picks (`ops/ec.py`
-LANE_GROUPS, which comes from these times), each checked exactly against the
-plain version (E1's inputs are the 2048-lane signature path's tiled, so one
-plain ladder checks every shape) and timed on the device (`ec.device_ms`).
-E3 (t = 3) is timed at E3_LANES.
+Builds csrc/edwards.cu once more with every group size of CANDIDATE_G for
+E1-E3 (-DKT_ED_GROUPS; its ptxas registers and spills printed), then times
+E1 at E1_LANES, E2 (p - q) at E2_LANES and E3 (t = 3) at E3_LANES lanes at
+each g through that build, and through the package at the g its rule picks
+(`ops/ec.py` LANE_GROUPS, which comes from these times), each checked
+exactly against the plain version (E1's inputs are the 2048-lane signature
+path's tiled, so one plain ladder checks every shape) and timed on the
+device (`ec.device_ms`).
 
 --baseline DIR: also E1-E3 at the same shapes through the package of another
 checkout in DIR (its own build and its own default launch; for example the
@@ -45,7 +45,7 @@ CANDIDATE_G = (1, 2, 4, 8, 16)
 E1_BASE = 2048  # the 1024-signature path's lanes; the other shapes tile it
 E1_LANES = (2048, 4096, 6144, 8192, 12288, 16384, 24576, 32768, 65536)
 E2_LANES = (1024, 2048, 4096, 8192, 16384, 1 << 16)
-E3_LANES = (1024, 8192, 1 << 16)
+E3_LANES = (1024, 2048, 4096, 8192, 12288, 16384, 24576, 32768, 1 << 16)
 
 
 def jubjub_lanes(n: int, seed: int, dev):
@@ -65,8 +65,8 @@ def jubjub_lanes(n: int, seed: int, dev):
 
 
 def build_candidates():
-    """csrc/edwards.cu built with every group size of CANDIDATE_G for E1 and
-    E2, loaded, and its ptxas lines."""
+    """csrc/edwards.cu built with every group size of CANDIDATE_G for E1-E3,
+    loaded, and its ptxas lines."""
     src = _build.CSRC / "edwards.cu"
     h = hashlib.sha256(_build.ARCH.encode())
     for f in (src, _build.CSRC / "field.cuh", _build.CSRC / "lane_group.cuh"):
@@ -162,11 +162,20 @@ def sweep(dev, log, baseline=None) -> dict:
 
     for n in E3_LANES:
         a, _ = jubjub_lanes(n, 13, dev)
-        runs = {"package": lambda: E.map_double(JUBJUB, a, 3)}
+
+        def cand(g, a=a, n=n):
+            out = _out4(n, dev)
+            _build.check(lib.kt_ed_map_double_jubjub(*[c.data_ptr() for c in (*a, *out)], n, 3, g, stream),
+                         f"E3 g={g}")
+            return out
+
+        runs = {f"g={g}": (lambda g=g: cand(g)) for g in CANDIDATE_G}
+        rule = ec.lane_group("ed_map_double", JUBJUB, n)
+        runs[f"package g={rule}"] = lambda: E.map_double(JUBJUB, a, 3)
         if old is not None:
             runs["baseline"] = lambda: baseline[0].map_double(old, a, 3)
         ms = _time(runs, E.map_double_plain(JUBJUB, a, 3), dev, 20, f"ed_map_double (8, {n})")
-        rec["ed_map_double"].append(dict(shape=[8, n], times=3, ms=ms))
+        rec["ed_map_double"].append(dict(shape=[8, n], times=3, rule_g=rule, ms=ms))
         log(f"ed_map_double (8, {n}) t=3: exact; " + ", ".join(f"{k_} {v:.5f}" for k_, v in ms.items()) + " ms")
     return rec
 

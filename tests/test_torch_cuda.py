@@ -281,6 +281,24 @@ def test_map_add_lane_groups_match_plain(dev, n):
             assert _group_launches("ed_map_add", JUBJUB, g) == before + 1
 
 
+@pytest.mark.parametrize("n", [1, 17, 1024])
+def test_map_double_lane_groups_match_plain(dev, n):
+    """E3 at every built lane group and t = 1, 2 and 3, exactly against its
+    plain version, at n lanes: one lane, a ragged warp and the signature
+    path's 1024; each call adds one launch under its g."""
+    from kogarashi_tpu_torch.curves.edwards import JUBJUB
+    from kogarashi_tpu_torch.ops import edwards as E
+
+    _, p = _jubjub_points(n, 7, dev)
+    for times in (1, 2, 3):
+        want = E.map_double_plain(JUBJUB, p, times)
+        for g in ec.groups("ed_map_double", JUBJUB):
+            before = _group_launches("ed_map_double", JUBJUB, g)
+            got = E.map_double(JUBJUB, p, times, group=g)
+            assert all(torch.equal(a, b) for a, b in zip(got, want)), (times, g)
+            assert _group_launches("ed_map_double", JUBJUB, g) == before + 1
+
+
 def test_batch_verify_on_card(dev):
     """64 signatures over 8 keys on the card: equal to the host verify, with
     S + 1, a changed message and R bytes that do not decompress rejected."""
@@ -319,6 +337,15 @@ def test_generic_scalar_mul_on_card(dev):
         assert point.on_curve(curve, out).all()
 
 
+def _fq12_lanes(n, rng, dev):
+    """(96, n) Fq12 words on the card: a zero lane, then a lane of p - 1,
+    then random ones."""
+    vals = [int(v) % FQ.p for v in rng.integers(0, 1 << 62, 12 * n)]
+    edges = [0] * 12 + [FQ.p - 1] * 12
+    vals[: min(24, 12 * n)] = edges[: 12 * n]
+    return torch.from_numpy(FQ.encode(vals)).reshape(8, n, 12).permute(2, 0, 1).reshape(96, n).contiguous().to(dev)
+
+
 @pytest.mark.parametrize("op", ["mul", "sq", "inv", "frobenius", "conj", "mul_by_034"])
 def test_f12_map_matches_plain(dev, op):
     """P3 on 1, 129 and 4096 lanes (a ragged last block among them), zero
@@ -328,10 +355,7 @@ def test_f12_map_matches_plain(dev, op):
 
     rng = np.random.default_rng(5)
     for n in (1, 129, 4096):
-        vals = [int(v) % FQ.p for v in rng.integers(0, 1 << 62, 12 * n)]
-        edges = [0] * 12 + [FQ.p - 1] * 12  # a zero lane, then a lane of p - 1
-        vals[: min(24, 12 * n)] = edges[: 12 * n]
-        a = torch.from_numpy(FQ.encode(vals)).reshape(8, n, 12).permute(2, 0, 1).reshape(96, n).contiguous().to(dev)
+        a = _fq12_lanes(n, rng, dev)
         b = a.roll(1, dims=1).contiguous()
         second = {"mul": b, "mul_by_034": b[:48].contiguous()}.get(op)
         for power in (range(12) if op == "frobenius" else (0,)):
@@ -340,6 +364,29 @@ def test_f12_map_matches_plain(dev, op):
             torch.cuda.synchronize()
             assert P.LAUNCHES["f12_map"] == before + 1
             assert torch.equal(got, P.map_plain(op, a, second, power)), (op, n, power)
+
+
+@pytest.mark.parametrize("op", ["mul", "sq", "inv", "frobenius", "conj", "mul_by_034"])
+def test_f12_map_routes_match_plain(dev, op):
+    """P3 on both routes (the op's schedule on a block a lane; one thread a
+    lane) at 1, 3 and 129 lanes, a zero lane and a lane of p - 1 among the
+    inputs, against its plain version on the card; frobenius at every power.
+    Each launch is counted under its route."""
+    from kogarashi_tpu_torch.ops import pairing as P
+
+    rng = np.random.default_rng(6)
+    for n in (1, 3, 129):
+        a = _fq12_lanes(n, rng, dev)
+        b = a.roll(1, dims=1).contiguous()
+        second = {"mul": b, "mul_by_034": b[:48].contiguous()}.get(op)
+        for power in (range(12) if op == "frobenius" else (0,)):
+            want = P.map_plain(op, a, second, power)
+            for route in P.ROUTES:
+                before = dict(P.ROUTE_LAUNCHES)
+                got = P.f12_map(op, a, second, power, route=route)
+                torch.cuda.synchronize()
+                assert P.ROUTE_LAUNCHES[route] == before[route] + 1, route
+                assert torch.equal(got, want), (op, n, power, route)
 
 
 def test_miller_loop_and_final_exp_match_plain(dev):

@@ -264,3 +264,71 @@ def test_lane_group_rule_covers_every_lane_count():
     assert min(ec.lane_group("ed_map_add", JUBJUB, n) for n in (1024, 8192)) > 1
     with pytest.raises(ValueError):
         E.map_add(JUBJUB, *(ED.identity(JUBJUB, 4, "cpu"),) * 2, group=3)
+
+
+def _double_xyz(p):
+    """E3's doublings but the last, on halves: edouble_h's products without
+    T = e dd, which the next doubling does not read (T left zero)."""
+    F = JUBJUB.alg
+    x, y, _, z = p
+    xx, bb, zz, xy = F.mul_many([(x, x), (y, y), (z, z), (x, y)])
+    aa = F.neg(xx)
+    cc, e = F.add_many([(zz, zz), (xy, xy)])
+    dd, g = F.sub(aa, bb), F.add(aa, bb)
+    f = F.sub(g, cc)
+    nx, ny, nz = F.mul_many([(e, f), (g, dd), (f, g)])
+    return nx, ny, F.zero(nx.shape[1:], nx.device), nz
+
+
+@pytest.mark.parametrize("times", [1, 2, 3])
+def test_map_double_without_t_matches_edouble_and_jax(times):
+    """E3 as the kernel runs it: `times` - 1 doublings that skip T, then one
+    that makes it, equal edouble_h `times` times and the JAX package's double
+    word for word, on seeded random Jubjub points with random Z, the
+    identity and (0, -1)."""
+    rng = random.Random(10 + times)
+    pts = [(q.x.v, q.y.v) for q in _rand_points(rng, 6)] + [(0, 1), (0, P - 1)]
+    p, jp = _extended_words(pts, [rng.randrange(1, P) for _ in pts])
+    h = tuple(mont.to_halves(t) for t in p)
+    for _ in range(times - 1):
+        h = _double_xyz(h)
+    got = tuple(mont.to_words(t) for t in E.edouble_h(JUBJUB, h))
+    want = E.map_double_plain(JUBJUB, p, times)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    for _ in range(times):
+        jp = JJUBJUB.double(jp)
+    assert _equal(got, jp)
+
+
+def test_map_double_lane_group_rule():
+    """E3's rule gives a built group size for every lane count from 1 to
+    2^20, each in csrc/edwards.cu's KT_ED_GROUPS, which builds exactly the
+    sizes E1-E3's rules name; a group at the signature path's 1024 lanes,
+    one thread a lane at 2^16; the group argument is checked on the CPU
+    too."""
+    src = (Path(E.__file__).resolve().parent.parent / "csrc" / "edwards.cu").read_text()
+    mask = int(re.search(r"#define KT_ED_GROUPS (0x[0-9a-f]+)", src).group(1), 16)
+    built = ec.groups("ed_map_double", JUBJUB)
+    assert {ec.lane_group("ed_map_double", JUBJUB, n) for n in range(1, (1 << 20) + 1)} == set(built)
+    assert all(mask >> g & 1 for g in built)
+    union = {g for k in ("ed_scalar_mul", "ed_map_add", "ed_map_double") for g in ec.groups(k, JUBJUB)}
+    assert sorted(union) == [g for g in range(1, 33) if mask >> g & 1]
+    assert ec.lane_group("ed_map_double", JUBJUB, 1024) > 1 and ec.lane_group("ed_map_double", JUBJUB, 1 << 16) == 1
+    p = ED.identity(JUBJUB, 4, "cpu")
+    want = E.map_double_plain(JUBJUB, p, 3)
+    for g in built:
+        assert all(torch.equal(a, b) for a, b in zip(E.map_double(JUBJUB, p, 3, group=g), want))
+    with pytest.raises(ValueError):
+        E.map_double(JUBJUB, p, 3, group=3)
+
+
+def test_floors_count_their_levels():
+    """The critical-path floors: E3's 2 levels a doubling (2 t), E2's 3, E1's
+    4 a bit over 256 bits, each at one dependent multiply, plus a launch;
+    E3's bound still counts 7 multiplies a doubling and the last one's T."""
+    cycles, clock, launch = 378.0, 1.98e9, 0.0034
+    for t in (1, 2, 3):
+        assert E.floor_ms("ed_map_double", cycles, clock, launch, t) == 2 * t * cycles / clock * 1e3 + launch
+    assert E.floor_ms("ed_map_add", cycles, clock, launch) == 3 * cycles / clock * 1e3 + launch
+    assert E.floor_ms("ed_scalar_mul", cycles, clock, launch) == 4 * 256 * cycles / clock * 1e3 + launch
+    assert E.MULS["ed_map_double"] == 7 and E.DOUBLE_LEVELS == 2

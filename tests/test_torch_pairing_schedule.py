@@ -1,20 +1,23 @@
-"""The schedules P1 and P2 run on the card (`ops/pairing_schedule.py`),
-evaluated here from the exact int32 table the card reads, on Python
-integers mod q: each level (P1's square and line; P2's square, multiply, a
-set bit's multiply and square, and the easy part's levels through the whole
-program) against the port's pyref tower (`Fq12` multiply, square,
-`mul_by_034`) and the plain versions (`f12_*_h`), on seeded values with edge
-components (0, 1, q - 1); the whole programs against the host's
-`multi_miller_loop` and `final_exp_fast`, the port's and the JAX
-package's, values passed between the packages as ints; the level and
-multiply counts the depth floor and the bound use; and what the kernel
-relies on, read back from the table. Exact."""
+"""The schedules P1, P2 and P3's schedule route run on the card
+(`ops/pairing_schedule.py`), evaluated here from the exact int32 table the
+card reads, on Python integers mod q: each level (P1's square and line; P2's
+square, multiply, a set bit's multiply and square, and the easy part's
+levels through the whole program) against the port's pyref tower (`Fq12`
+multiply, square, `mul_by_034`) and the plain versions (`f12_*_h`), on
+seeded values with edge components (0, 1, q - 1); the whole programs
+against the host's `multi_miller_loop` and `final_exp_fast`, the port's and
+the JAX package's, values passed between the packages as ints; each of P3's
+one-op schedules against the JAX package's tower op and P3's plain version;
+the level and multiply counts the depth floor and the bound use; and what
+the kernel relies on, read back from the table. Exact."""
 
+import jax
 import numpy as np
 import pytest
 import torch
 
 from kogarashi_tpu import pyref as jpyref
+from kogarashi_tpu.ops import pairing as jp
 from kogarashi_tpu.pyref import pairing_fast as jpf
 from kogarashi_tpu_torch import constants as C
 from kogarashi_tpu_torch import pyref
@@ -42,7 +45,8 @@ class Table:
     def __init__(self, sched):
         self.t = [int(x) for x in sched.table]
         (self.n_slots, self.n_levels, self.lev_off, self.n_consts, self.const_off, self.in_slot,
-         self.out_slot, self.shared, self.prog_off, self.prog_len, self.zero) = self.t[:S.HDR_WORDS]
+         self.out_slot, self.shared, self.prog_off, self.prog_len, self.zero, self.in2_slot,
+         self.in2_len) = self.t[:S.HDR_WORDS]
 
     def level(self, lid):
         return self.t[self.lev_off + 5 * lid: self.lev_off + 5 * lid + 5]
@@ -74,7 +78,7 @@ class Table:
     def program(self):
         return self.t[self.prog_off: self.prog_off + self.prog_len]
 
-    def initial_slots(self, inputs=None):
+    def initial_slots(self, inputs=None, inputs2=None):
         slots = [0] * self.n_slots
         for c in range(self.n_consts):
             row = self.t[self.const_off + 9 * c: self.const_off + 9 * c + 9]
@@ -84,6 +88,9 @@ class Table:
                 assert (slots[row[0] - self.n_slots] + words_to_int(row[1:])) % Q == 0
         if self.in_slot >= 0:
             slots[self.in_slot: self.in_slot + 12] = inputs
+        if self.in2_slot >= 0:
+            assert len(inputs2) == self.in2_len
+            slots[self.in2_slot: self.in2_slot + self.in2_len] = inputs2
         return slots
 
     def run_level(self, lid, slots, line=()):
@@ -101,8 +108,8 @@ class Table:
         for dst, terms in self.outputs(lv):
             slots[dst] = sum(c * slots[s] for s, c in terms) % Q
 
-    def run(self, inputs=None, lines=()):
-        slots, r = self.initial_slots(inputs), 0
+    def run(self, inputs=None, lines=(), inputs2=None):
+        slots, r = self.initial_slots(inputs, inputs2), 0
         for lid in self.program():
             line = ()
             if self.level(lid)[0] == S.LINE:
@@ -170,15 +177,20 @@ def test_level_counts():
 
 
 def test_table_invariants():
-    """What the kernel relies on, read back from each table: a level's
+    """What the kernel relies on, read back from each table (P1's, P2's and
+    every one-op schedule of P3, frobenius at every power): a level's
     products read no product of that level and only slots (lines only in
     LINE levels); no output reads a slot another output writes; sums of |c|
-    within the kernel's wide sum; the zero slot never written; the shared
-    part fits in shared memory."""
-    for sched in (S.miller_loop(1), S.miller_loop(3), S.miller_loop(64), S.final_exp()):
+    within the kernel's wide sum; the zero slot never written; the inputs
+    within the slots; the shared part fits in shared memory; the table
+    padded to whole 16-byte copies."""
+    one_op = [S.f12_op(op, k) for op in S.F12_OPS for k in (range(12) if op == "frobenius" else (0,))]
+    for sched in (S.miller_loop(1), S.miller_loop(3), S.miller_loop(64), S.final_exp(), *one_op):
         tab = Table(sched)
         assert tab.shared == tab.prog_off and sched.smem_bytes() <= 227 * 1024
-        assert tab.zero == tab.n_slots - 1
+        assert tab.zero == tab.n_slots - 1 and len(tab.t) % 4 == 0
+        for first, count in ((tab.in_slot, 12), (tab.in2_slot, tab.in2_len)):
+            assert first < 0 or 0 <= first and first + count <= tab.zero
         for lid in range(tab.n_levels):
             lv = tab.level(lid)
             if lv[0] == S.INVERSE:
@@ -303,3 +315,96 @@ def test_wrappers_refuse_wrong_shapes():
         with pytest.raises(ValueError, match="expected"):
             P.final_exp_device(bad)
     assert P.LAUNCHES == before
+
+
+# P3's one-op schedules (`S.f12_op`): each op, frobenius at powers 1, 2, 3, 6
+ONE_OP = [("mul", 0), ("sq", 0), ("inv", 0), ("conj", 0), ("mul_by_034", 0),
+          ("frobenius", 1), ("frobenius", 2), ("frobenius", 3), ("frobenius", 6)]
+JAX_OPS = {"mul": jp.f12_mul_jit, "sq": jp.f12_sq_jit, "inv": jp.f12_inv_jit, "conj": jax.jit(jp.f12_conj),
+           "mul_by_034": jax.jit(jp.f12_mul_by_034), "frobenius": jax.jit(jp.f12_frobenius, static_argnums=1)}
+
+
+def jax_fq12_words(vals):
+    return jp.encode_fq12(jpyref.Fq12.from_fq_list([jpyref.Fq(v) for v in vals]))
+
+
+def jax_op(op, power, a_vals, b_vals) -> list:
+    """The JAX package's tower op (kogarashi_tpu/ops/pairing.py) on 12 ints
+    (and the second operand's 12, or the line's 6), back as 12 ints."""
+    da = jax_fq12_words(a_vals)
+    if op == "mul":
+        r = JAX_OPS[op](da, jax_fq12_words(b_vals))
+    elif op == "mul_by_034":
+        line = jax_fq12_words(b_vals + [0] * 6)
+        r = JAX_OPS[op](da, line[0][0], line[0][1], line[0][2])  # c0, c3, c4: the first three Fq2s
+    elif op == "frobenius":
+        r = JAX_OPS[op](da, power)
+    else:
+        r = JAX_OPS[op](da)
+    return ints12(jp.decode_fq12(r))
+
+
+@pytest.mark.parametrize("op,power", ONE_OP, ids=[f"{op}{k if op == 'frobenius' else ''}" for op, k in ONE_OP])
+def test_f12_op_schedule_matches_jax_and_plain(op, power):
+    """P3's schedule route: the one-op schedule's table, run here on Python
+    integers, equals the JAX package's tower op and P3's plain version
+    (`map_plain`, all lanes in one call) on seeded values with edge
+    components, zero, one and all q - 1; mul's second operand is another
+    value, mul_by_034's line (c0, c3, c4) another value's first six
+    components."""
+    tab = Table(S.f12_op(op, power))
+    xs = values(20 + power, 3)
+    ys = xs[1:] + xs[:1]
+    seconds = {"mul": ys, "mul_by_034": [y[:6] for y in ys]}.get(op, [None] * len(xs))
+    got = [tab.run(x, inputs2=y) for x, y in zip(xs, seconds)]
+    a = P.encode_fq12([fq12(x) for x in xs], "cpu")
+    b = None
+    if op == "mul":
+        b = P.encode_fq12([fq12(y) for y in ys], "cpu")
+    elif op == "mul_by_034":
+        b = P.encode_fq12([fq12(y + [0] * 6) for y in seconds], "cpu")[:48].contiguous()
+    assert got == [ints12(v) for v in P.decode_fq12(P.map_plain(op, a, b, power))]
+    assert got == [jax_op(op, power, x, y) for x, y in zip(xs, seconds)]
+
+
+def test_f12_op_depth_and_products():
+    """P3's schedule route: `depth_levels("f12_map", op=...)` is each
+    schedule's count (one level of products for mul, sq, mul_by_034 and
+    frobenius at every power; inv's 7 and its Fermat inverse; conj's level
+    of outputs makes no product), the depth floor counts them, and the
+    schedules make the multiplies the bound counts (frobenius 15, its
+    constants multiplied on the host; inv's besides its Fermat inverse)."""
+    want = {"mul": (1, 0), "sq": (1, 0), "inv": (7, 1), "frobenius": (1, 0), "conj": (0, 0), "mul_by_034": (1, 0)}
+    for op in S.F12_OPS:
+        for k in range(12) if op == "frobenius" else (0,):
+            sched = S.f12_op(op, k)
+            assert P.depth_levels("f12_map", op=op, power=k) == sched.depth() == want[op], (op, k)
+            assert len(sched.program) == max(1, sum(want[op]))
+        levels, inverses = want[op]
+        floor = P.depth_floor_ms("f12_map", 100.0, 300.0, 1e9, 0.002, op=op)
+        assert abs(floor - ((levels * 100.0 + inverses * P._INV_FQ * 300.0) / 1e9 * 1e3 + 0.002)) < 1e-15
+    for op in ("mul", "sq", "mul_by_034", "conj"):
+        assert S.f12_op(op).products() == P.MULS[op]
+    assert all(S.f12_op("frobenius", k).products() == P.MULS["frobenius"] == 15 for k in range(12))
+    assert S.f12_op("inv").products() + P._INV_FQ == P.MULS["inv"]
+    assert S.f12_op("frobenius", 15) is S.f12_op("frobenius", 3)
+    with pytest.raises(ValueError, match="unknown op"):
+        S.f12_op("div")
+
+
+def test_p3_routes_cover_every_lane_count():
+    """P3's rule gives a route for every op at every lane count from 1 to
+    2^17: the schedule route at the one lane the verify equation's Gt check
+    multiplies on (conj, which makes no product, on the thread route), the
+    thread route from each op's threshold on and at 2^16 lanes; a route
+    that does not exist raises before anything runs."""
+    for op in P.OPS:
+        routes = [P.p3_route(op, n) for n in range(1, (1 << 17) + 1)]
+        assert set(routes) <= set(P.ROUTES)
+        first = routes.index("thread")
+        assert routes[first:] == ["thread"] * (len(routes) - first), op  # one switch, to the thread route
+        assert P.p3_route(op, 1 << 16) == "thread"
+        assert P.p3_route(op, 1) == ("thread" if op == "conj" else "schedule")
+    a = P.encode_fq12([Fq12.one()], "cpu")
+    with pytest.raises(ValueError, match="unknown route"):
+        P.f12_map("sq", a, route="warp")
