@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Build the port's CUDA kernels; drive Groth16 (prove, verify), its distributed leg, Nova and RedDSA on the GPU.
+"""Build the port's CUDA kernels; drive its entry points, Groth16 (prove, verify), its distributed leg, Nova and RedDSA on the GPU.
 
     python3 chip_smoke.py
 
@@ -13,11 +13,17 @@ with the card's name and power limit beside it:
            BLS12-381 Fr elements (mul, sqr, add, sub, neg), exactly, every
            pair of the carry-chain edge values (0, 1, p-1, p-2, R mod p, p's
            top word, values just below p) among them
-  msm      2^20 G1 MSM (bench.py's workload, c = 16) and a 2^16 G2 MSM
-           against a host oracle; median of 3 with the host copy inside; the
-           scan_proj (K2) launches each MSM made, held against
-           ops/msm.py `scan_proj_launches`; the device time of each MSM's
-           window combine (15 x map_pdouble t = 16 + map_padd at one lane)
+  msm      2^20 G1 MSM (bench.py's workload, `kogarashi_tpu_torch.bench.
+           workload`, c = 16) and a 2^16 G2 MSM against a host oracle; median
+           of 3 with the host copy inside; the scan_proj (K2) launches each
+           MSM made, held against ops/msm.py `scan_proj_launches`; the device
+           time of each MSM's window combine (15 x map_pdouble t = 16 +
+           map_padd at one lane)
+  entry    `kogarashi_tpu_torch.entry.entry()`'s fn (G1 MSM, c = 8, 128
+           points) on the card against `entry.oracle()`
+  bench    `python -m kogarashi_tpu_torch.bench` in-process (`bench.run`, 2^20,
+           c = 16, 3 reps, every call held to the oracle): its JSON line,
+           best and median; entry and bench must each launch K1-K4 (G1)
   ec       K1-K4 (scan_mixed, scan_proj, map_padd, map_pdouble) for G1,
            G2 and Grumpkin against their plain versions at the main paths'
            shapes (G1 and G2: K2 at all 13 shapes of the 2^20 MSM and at the
@@ -38,6 +44,11 @@ with the card's name and power limit beside it:
            for G1 and Grumpkin at 256 lanes and G2 at 64, edge scalars among
            them, against the host oracle; on_curve and to_affine on the
            results; the K3 / K4 launches these calls made
+  micro    `python -m kogarashi_tpu_torch.benches.microbench` in-process at
+           its default batch (2^16): every line logged, each op checked on
+           its first 16 lanes (plain version or host integers) before it is
+           timed; K3 and K4 for G1, G2, Grumpkin, K1 and K2 for G1 and E1-E3
+           must each launch
   edwards  E1-E3 (csrc/edwards.cu) exactly against their plain versions:
            E2 and E3 at 2^16 lanes and at the signature path's 1024, E1 at
            2048 lanes and at 16384 (eight tiles of the 2048, each held to the
@@ -54,9 +65,11 @@ with the card's name and power limit beside it:
            1024 and 8192 signatures (the 1024 tiled) with its split (host
            hashing and decompression, encode, E1, the combine, decode), beside
            the host verify's time per signature
-  groth16  SquareChainCircuit(2^20): setup -> prove -> verify on the card,
-           a tampered public input rejected, the proof encoded, decoded (G2
-           subgroup check included) and verified again; the kernel launch
+  groth16  `python -m kogarashi_tpu_torch.benches.groth16_large` in-process
+           (`groth16_large.run`): SquareChainCircuit(2^20), setup
+           (random.Random(0x5E7)) -> prove (0xBEEF) -> verify on the card, a
+           tampered public input rejected, its JSON line; the proof encoded,
+           decoded (G2 subgroup check included) and verified again; the kernel launch
            counters of this run must all be > 0 for G1 and G2, and K2's and
            K4's by lane group (`ec.GROUP_LAUNCHES`) for every group of K2 and
            K4's one-lane one
@@ -93,15 +106,18 @@ with the card's name and power limit beside it:
            bytes with one commitment byte flipped raise MalformedProof, and
            the proof re-encoded with w_range_primary.e = [] is rejected;
            `Ivc.resume` from the decoded bytes takes one step, whose sha256
-           equals the uninterrupted chain's step 4; then a
-           timed chain (random.Random(99)): setup, each step, steps/s,
+           equals the uninterrupted chain's step 4; then
+           `python -m kogarashi_tpu_torch.benches.ivc_chain` in-process
+           (`ivc_chain.run`, random.Random(99), 10 steps or 5 if 10 would pass
+           NOVA_PHASE_S): its checks and JSON line, each step, steps/s,
            verify, and a folding step's split into synthesis, cross term,
            G1 and Grumpkin commits, transcripts and folds
 The last lines are the kernels' JSON record (name, route, source, replaces,
 launches (on the kernel's path: Groth16's for G1 and G2, Nova's for
 Grumpkin, the 1024-signature batch_verify's for E1-E3, the verify
 equation's for P1-P3), path, launches_by_path (for G1's also the
-distributed path's, counted inside rank 0), max_abs_err, ms, plain_ms,
+distributed path's, counted inside rank 0, and the entry and bench steps';
+every kernel's also the micro phase's), max_abs_err, ms, plain_ms,
 bound_ms, bound_by, bound_share, library_ms, shape, times, g for K2 and K4,
 their other shapes, for K2, K4, E1-E3 launches_by_g (E1-E3 also g), for
 K2 msm_sum_ms and msm_sum_bound_ms, for K4 at one lane, E1 at 2048 lanes,
@@ -430,31 +446,18 @@ def phase_ec(dev, card: str, log_n: int, windows: int, k2_launches) -> dict:
 
 
 def msm_check(curve, log_n: int, c, seed_pts: int, seed_sc: int, dev, card: str, reps: int = 3):
-    """bench.py's workload: 64 distinct bases tiled to 2^log_n, host oracle
-    by effective scalar per base. Returns (median s, point-adds/s, the
-    scan_proj shapes the MSM launched, largest first)."""
-    import numpy as np
+    """bench.py's workload (`kogarashi_tpu_torch.bench.workload`: 64 distinct
+    bases tiled to 2^log_n, host oracle by effective scalar per base).
+    Returns (median s, point-adds/s, the scan_proj shapes the MSM launched,
+    largest first)."""
     import torch
 
-    from kogarashi_tpu_torch.curves import decode_points, prepare_points
-    from kogarashi_tpu_torch.fields.spec import FR
+    from kogarashi_tpu_torch.bench import workload
+    from kogarashi_tpu_torch.curves import decode_points
     from kogarashi_tpu_torch.ops.msm import default_window, msm, scan_proj_launches, window_combine
 
-    n, nd = 1 << log_n, 64
-    r = FR.p
-    g = curve.pyref_spec.generator
-    rng = random.Random(seed_pts)
-    dk = [rng.randrange(1, r) for _ in range(nd)]
-    x64, y64, inf64 = prepare_points(curve, [k * g for k in dk], dev)
-    x, y, inf = x64.repeat(1, n // nd), y64.repeat(1, n // nd), inf64.repeat(n // nd)
-    sc = np.random.default_rng(seed_sc).integers(0, 1 << 16, size=(16, n), dtype=np.uint32)
-    sc[15] &= 0x3FFF  # < 2^254 < r
-    scalars = torch.from_numpy(sc.astype(np.int32)).to(dev)
-
-    sums = sc.astype(np.int64).reshape(16, n // nd, nd).sum(axis=1)  # (16, 64)
-    eff = [sum(int(sums[l, b]) << (16 * l) for l in range(16)) for b in range(nd)]
-    expected = (sum((e % r) * k for e, k in zip(eff, dk)) % r) * g
-
+    n = 1 << log_n
+    x, y, inf, scalars, expected = workload(log_n, dev, curve, seed_pts, seed_sc)
     c = c or default_window(n)
     # first call: allocator and caches warm, the K2 shapes and the window sums recorded
     k2_shapes, window_sums = record_msm(lambda: msm(curve, x, y, inf, scalars, c=c))
@@ -481,6 +484,76 @@ def msm_check(curve, log_n: int, c, seed_pts: int, seed_sc: int, dev, card: str,
                f"t={c} + map_padd at one lane, with the slicing of the window sums) {combine_ms:.4f} ms "
                f"device time ({card})")
     return med, adds, k2_shapes
+
+
+def phase_bench(dev, card: str) -> dict:
+    """The port's entry points on the msm phase's workload: `entry.entry()`'s
+    fn (the G1 MSM at c = 8 over `__graft_entry__.py`'s 128 points) on the
+    card against `entry.oracle()`, then `python -m kogarashi_tpu_torch.bench`
+    run in-process (`bench.run` at 2^LOG2_MSM, c = 16, 3 reps: the first call
+    and every rep held to the oracle) with its JSON logged. Each must launch
+    every G1 kernel. Returns their K1-K4 launches by path."""
+    from kogarashi_tpu_torch import bench, entry
+    from kogarashi_tpu_torch.curves import G1, decode_points
+    from kogarashi_tpu_torch.ops import ec
+
+    paths = {}
+    ec.reset_launches()
+    t0 = time.perf_counter()
+    fn, args = entry.entry(dev)
+    got = decode_points(G1, fn(*args))[0]
+    t_entry = time.perf_counter() - t0
+    paths["entry"] = dict(ec.LAUNCHES)
+    if got != entry.oracle():
+        raise AssertionError("entry: fn(*example_args) differs from the oracle")
+    log("entry", f"entry(): msm on G1, c = {fn.keywords['c']}, over {args[0].shape[1]} points "
+                 f"(__graft_entry__.py's): oracle PASS; {t_entry:.3f} s with the inputs' encoding ({card})")
+    ec.reset_launches()
+    result, info = bench.run(LOG2_MSM, 16, 3, dev)
+    paths["bench"] = dict(ec.LAUNCHES)
+    log("bench", json.dumps(result))
+    log("bench", f"n=2^{LOG2_MSM} c={info['c']} windows={info['windows']}: best {info['best']:.6f} s, median "
+                 f"{info['median']:.6f} s of {[round(t, 6) for t in info['times']]}; first call "
+                 f"{info['first_s']:.4f} s; oracle PASS on every call ({card})")
+    for path, launches in paths.items():
+        missing = [f"{k}_g1" for k in ec.KERNELS if launches[f"{k}_g1"] <= 0]
+        if missing:
+            raise AssertionError(f"kernels not launched on the {path} path: {missing}")
+        log(path, f"launches: {json.dumps({k: v for k, v in launches.items() if v})}")
+    return paths
+
+
+def phase_micro(card: str) -> dict:
+    """`python -m kogarashi_tpu_torch.benches.microbench` at its default
+    batch, run in-process, every line logged: each op is checked on its
+    first lanes before it is timed (a failed check raises). Every K1-K4
+    (G1, G2, Grumpkin) point map and E1-E3 must launch. Returns the run's
+    K1-K4 and E1-E3 launches."""
+    import contextlib
+    import io
+
+    from kogarashi_tpu_torch.benches import microbench
+    from kogarashi_tpu_torch.ops import ec
+    from kogarashi_tpu_torch.ops import edwards as E
+
+    ec.reset_launches()
+    E.reset_launches()
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        microbench.main([])
+    seconds = time.perf_counter() - t0
+    for line in out.getvalue().splitlines():
+        log("micro", line)
+    launches = {**ec.LAUNCHES, **E.LAUNCHES}
+    want = [f"{k}_{c}" for k in ("map_padd", "map_pdouble") for c in ("g1", "g2", "grumpkin")]
+    want += [f"{k}_g1" for k in ("scan_mixed", "scan_proj")] + list(E.LAUNCHES)
+    missing = [k for k in want if launches[k] <= 0]
+    if missing:
+        raise AssertionError(f"kernels not launched by the microbench: {missing}")
+    log("micro", f"the matrix in {seconds:.1f} s; launches: {json.dumps({k: v for k, v in launches.items() if v})} "
+                 f"({card})")
+    return launches
 
 
 def phase_curves(dev, card) -> dict:
@@ -872,39 +945,27 @@ def phase_pairing(dev, card: str, proof, inputs, pvk) -> tuple:
 
 
 def phase_groth16(dev, card: str, log2_m: int) -> tuple:
-    import torch
-
+    """`python -m kogarashi_tpu_torch.benches.groth16_large` in-process
+    (`groth16_large.run`: SquareChainCircuit(2^log2_m), setup from
+    random.Random(0x5E7), a proof from random.Random(0xBEEF), verify, a changed
+    public input rejected), its JSON logged; then the proof encoded, decoded
+    (G2 subgroup check) and verified again. Every kernel must have launched
+    for G1 and G2, and K2 and K4 at every lane group of the path."""
+    from kogarashi_tpu_torch.benches import groth16_large
     from kogarashi_tpu_torch.curves import G1, G2
-    from kogarashi_tpu_torch.groth16 import SquareChainCircuit, setup
     from kogarashi_tpu_torch.ops import ec
     from kogarashi_tpu_torch.utils.serde import decode_groth16_proof, encode_groth16_proof
 
     logging.basicConfig(format="[groth16] %(message)s", stream=sys.stdout)
     for name in ("kogarashi_tpu_torch.groth16.setup", "kogarashi_tpu_torch.groth16.prover"):
         logging.getLogger(name).setLevel(logging.INFO)
-    circuit = SquareChainCircuit(1 << log2_m)
-    cs = circuit.build()
     ec.reset_launches()  # counts from here on are the main path's
-    t0 = time.perf_counter()
-    prover, verifier = setup(circuit, random.Random(11), device=dev)
-    torch.cuda.synchronize()
-    t_setup = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    proof = prover.create_proof(circuit, random.Random(12))
-    t_prove = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    ok = verifier.verify(proof, cs.x[1:])
-    t_verify = time.perf_counter() - t0
+    record, (proof, inputs, verifier) = groth16_large.run(log2_m, dev)
     launches = dict(ec.LAUNCHES)
     by_group = {k: dict(sorted(v.items())) for k, v in ec.GROUP_LAUNCHES.items()}
-    bad = verifier.verify(proof, [cs.x[1], cs.x[2] + 1])
-    if not ok:
-        raise AssertionError("Groth16 proof does not verify")
-    if bad:
-        raise AssertionError("Groth16 verifier accepted a tampered public input")
     data = encode_groth16_proof(proof)
     back = decode_groth16_proof(data)  # validates A, C on G1 and B in G2's r-order subgroup
-    if (back.a, back.b, back.c) != (proof.a, proof.b, proof.c) or not verifier.verify(back, cs.x[1:]):
+    if (back.a, back.b, back.c) != (proof.a, proof.b, proof.c) or not verifier.verify(back, inputs):
         raise AssertionError("Groth16: the decoded proof differs or does not verify")
     # every kernel, every lane group of K2 (its 13 shapes span them) and K4's
     # one-lane group (the window combine's)
@@ -914,12 +975,13 @@ def phase_groth16(dev, card: str, log2_m: int) -> tuple:
     missing += [f"{k} g={g}" for k, g in want if by_group.get(k, {}).get(g, 0) <= 0]
     if missing:
         raise AssertionError(f"kernels not launched on the Groth16 path: {missing}")
-    log("groth16", f"SquareChainCircuit(2^{log2_m}): setup {t_setup:.3f} s, prove {t_prove:.3f} s, "
-                   f"verify {t_verify:.3f} s; verify True, tampered input rejected; the proof's {len(data)} "
+    log("groth16", json.dumps(record))
+    log("groth16", f"SquareChainCircuit(2^{log2_m}): setup {record['setup_s']:.3f} s, prove {record['prove_s']:.3f} s, "
+                   f"verify {record['verify_s']:.3f} s; verify True, tampered input rejected; the proof's {len(data)} "
                    f"bytes decode (G2 subgroup check) and verify ({card})")
     log("groth16", f"launches: {json.dumps(launches)}")
     log("groth16", f"K2 and K4 launches by lane group g: {json.dumps(by_group)}")
-    return launches, by_group, (proof, cs.x[1:], verifier.vk)
+    return launches, by_group, (proof, inputs, verifier.vk)
 
 
 def phase_distributed(card: str, msm_median_s: float) -> dict:
@@ -1013,14 +1075,17 @@ def phase_nova(dev, card: str) -> tuple:
        of its encoding is the JAX package's (NOVA_PROOF_DIGEST). The kernel
        launch counters are read over this run: every Grumpkin kernel and
        lane group, and every G1 kernel, must have launched.
-    2. A timed chain as benches/ivc_chain.py runs it (random.Random(99)):
-       setup, NOVA_STEPS steps (5 if 10 would take the chain past
-       NOVA_PHASE_S), verify; each step's seconds and the steps' split."""
+    2. `python -m kogarashi_tpu_torch.benches.ivc_chain` in-process
+       (`ivc_chain.run`, random.Random(99) keys): setup, NOVA_STEPS steps (5
+       if 10 would take the chain past NOVA_PHASE_S), its checks (the final
+       proof verifies, z_i, a changed z_i rejected), its JSON; each step's
+       seconds and the folding steps' split (`StepSplit`, around the steps)."""
     import hashlib
 
     import torch
 
     from kogarashi_tpu_torch import constants as C
+    from kogarashi_tpu_torch.benches import ivc_chain
     from kogarashi_tpu_torch.curves import GRUMPKIN
     from kogarashi_tpu_torch.nova import ExampleFunction, Ivc, PublicParams, RelaxedR1csWitness
     from kogarashi_tpu_torch.ops import ec
@@ -1028,12 +1093,6 @@ def phase_nova(dev, card: str) -> tuple:
     from kogarashi_tpu_torch.pallet import NovaPallet, SamplePallet
     from kogarashi_tpu_torch.utils.serde import Codec, decode_recursive_proof, encode_recursive_proof
     from kogarashi_tpu_torch.utils.xorshift import REFERENCE_TEST_SEED, XorShiftRng
-
-    def chain_state(i):
-        z = 0
-        for _ in range(i):
-            z = (z**3 + z + 5) % C.R
-        return [z]
 
     ec.reset_launches()  # counts from here on are the Nova path's
     t0 = time.perf_counter()
@@ -1057,7 +1116,7 @@ def phase_nova(dev, card: str) -> tuple:
     digest = hashlib.sha256(data).hexdigest()
     if not ok:
         raise AssertionError("Nova: the 3-step reference proof does not verify")
-    if proof.zi_primary != chain_state(proof.i):
+    if proof.zi_primary != ivc_chain.chain_state(proof.i):
         raise AssertionError(f"Nova: z_i {proof.zi_primary} after {proof.i} steps")
     if digest != NOVA_PROOF_DIGEST:
         raise AssertionError(f"Nova: proof digest {digest}, the JAX package's is {NOVA_PROOF_DIGEST}")
@@ -1121,33 +1180,19 @@ def phase_nova(dev, card: str) -> tuple:
     log("nova", f"launches: {json.dumps({k: v for k, v in launches.items() if v})}")
     log("nova", f"K2 and K4 launches by lane group g: {json.dumps(by_group)}")
 
-    t0 = time.perf_counter()
-    pp = PublicParams.setup(ExampleFunction, ExampleFunction, random.Random(99), device=dev)
-    torch.cuda.synchronize()
-    t_setup = time.perf_counter() - t0
-    ivc = Ivc(pp, z0_primary=[0], z0_secondary=[0])
-    steps, n_steps = [], NOVA_STEPS
-    with StepSplit() as split:
-        while len(steps) < n_steps:
-            t0 = time.perf_counter()
-            proof = ivc.prove_step()
-            torch.cuda.synchronize()
-            steps.append(time.perf_counter() - t0)
-            if len(steps) == 5 and t_setup + sum(steps) * n_steps / 5 > NOVA_PHASE_S:
-                n_steps = 5
-    t0 = time.perf_counter()
-    ok = proof.verify(pp)
-    t_verify = time.perf_counter() - t0
-    if not ok or proof.zi_primary != chain_state(proof.i):
-        raise AssertionError(f"Nova: the {n_steps}-step chain's proof does not verify")
+    split = StepSplit()
+    record, detail = ivc_chain.run(NOVA_STEPS, dev, cap_s=NOVA_PHASE_S, around_steps=split)
+    steps = detail["step_s"]
     folds = len(steps) - 1  # the first step is the base case
     other = sum(steps) - sum(split.parts.values())
     per = {k: v / folds for k, v in sorted(split.parts.items())}
     per["transcripts and folds"] = other / folds
-    log("nova", f"timed chain (random.Random(99)): setup {t_setup:.3f} s; steps "
+    log("nova", "ivc_chain: " + json.dumps(record))
+    log("nova", f"timed chain (benches.ivc_chain.run, random.Random(99)): setup {record['setup_s']:.3f} s; steps "
                 f"{[round(t, 4) for t in steps]} s; {len(steps) / sum(steps):.4f} steps/s over "
                 f"{len(steps)} steps, {folds / sum(steps[1:]):.4f} over the {folds} folding steps; verify "
-                f"{t_verify:.3f} s ({card})")
+                f"{detail['verify_s']:.3f} s; the final proof verifies, z_i is right, a changed z_i is rejected "
+                f"({card})")
     log("nova", "a folding step's split, s: " + ", ".join(f"{k} {v:.4f}" for k, v in per.items())
         + f" (of {sum(steps[1:]) / folds:.4f}; {card})")
     return launches, by_group
@@ -1183,17 +1228,27 @@ def main() -> int:
 
     from kogarashi_tpu_torch.curves import G1, G2
 
-    phase_field(dev, card)
-    g1_msm_s, _, k2_launches = msm_check(G1, LOG2_MSM, 16, 0xBE7C4, 1, dev, card)
-    msm_check(G2, 16, None, 0xBE7C5, 2, dev, card)
-    record = phase_ec(dev, card, LOG2_MSM, windows=16, k2_launches=k2_launches)
-    phase_curves(dev, card)
-    ed_record = phase_edwards(dev, card)
-    sig_launches, sig_by_group = phase_signature(dev, card)
-    g16_launches, g16_by_group, (proof, inputs, pvk) = phase_groth16(dev, card, LOG2_CONSTRAINTS)
-    dist_launches = phase_distributed(card, g1_msm_s)
-    pair_launches, pair_record = phase_pairing(dev, card, proof, inputs, pvk)
-    paths = {"groth16": (g16_launches, g16_by_group), "nova": phase_nova(dev, card)}
+    phase_s = {"build": time.perf_counter() - t0}
+
+    def run(name, fn, *args, **kwargs):
+        t0 = time.perf_counter()
+        out = fn(*args, **kwargs)
+        phase_s[name] = phase_s.get(name, 0.0) + time.perf_counter() - t0
+        return out
+
+    run("field", phase_field, dev, card)
+    g1_msm_s, _, k2_launches = run("msm", msm_check, G1, LOG2_MSM, 16, 0xBE7C4, 1, dev, card)
+    run("msm", msm_check, G2, 16, None, 0xBE7C5, 2, dev, card)
+    bench_launches = run("entry and bench", phase_bench, dev, card)
+    record = run("ec", phase_ec, dev, card, LOG2_MSM, windows=16, k2_launches=k2_launches)
+    run("curves", phase_curves, dev, card)
+    micro_launches = run("micro", phase_micro, card)
+    ed_record = run("edwards", phase_edwards, dev, card)
+    sig_launches, sig_by_group = run("signature", phase_signature, dev, card)
+    g16_launches, g16_by_group, (proof, inputs, pvk) = run("groth16", phase_groth16, dev, card, LOG2_CONSTRAINTS)
+    dist_launches = run("distributed", phase_distributed, card, g1_msm_s)
+    pair_launches, pair_record = run("pairing", phase_pairing, dev, card, proof, inputs, pvk)
+    paths = {"groth16": (g16_launches, g16_by_group), "nova": run("nova", phase_nova, dev, card)}
 
     kernels = []
     for key, rec in record.items():
@@ -1205,13 +1260,15 @@ def main() -> int:
                      launches_by_path={k: v[0][key] for k, v in paths.items()}, **rec)
         if key.endswith("_g1"):
             entry["launches_by_path"]["distributed"] = dist_launches[key]
+            entry["launches_by_path"].update({k: v[key] for k, v in bench_launches.items()})
+        entry["launches_by_path"]["micro"] = micro_launches[key]
         if key in by_group:
             entry["launches_by_g"] = by_group[key]
         kernels.append(entry)
     for key, rec in ed_record.items():
         entry = dict(name=key, route="cuda", source=ED_SOURCE, replaces=ED_REPLACES[key.rsplit("_", 1)[0]],
                      launches=sig_launches[key], path="signature",
-                     launches_by_path={"signature": sig_launches[key]}, **rec)
+                     launches_by_path={"signature": sig_launches[key], "micro": micro_launches[key]}, **rec)
         if key in sig_by_group:
             entry["launches_by_g"] = sig_by_group[key]
         kernels.append(entry)
@@ -1219,7 +1276,8 @@ def main() -> int:
         kernels.append(dict(name=key, route="cuda", source=PAIR_SOURCE, replaces=PAIR_REPLACES[key],
                             launches=pair_launches[key], path="groth16_verify",
                             launches_by_path={"groth16_verify": pair_launches[key]}, library_ms=None, **rec))
-    log("done", f"every phase in {time.perf_counter() - t_start:.1f} s ({card})")
+    log("done", f"every phase in {time.perf_counter() - t_start:.1f} s; by phase, s: "
+                f"{json.dumps({k: round(v, 1) for k, v in phase_s.items()})} ({card})")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -19,6 +19,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from ..bench import oracle
 from ..curves import CURVES, G1, decode_points, prepare_points
 from ..fields import mont
 from ..fields.spec import FR
@@ -67,14 +68,6 @@ def msm_inputs(log_n: int, device):
     return x16.repeat(1, reps), y16.repeat(1, reps), inf16.repeat(reps), scalars, dk, sc
 
 
-def msm_oracle(dk, sc, n: int):
-    """sum_i k_i P_i over the first n tiled points, by each base's summed
-    scalar (host ints)."""
-    sums = sc[:, :n].astype(np.int64).reshape(16, n // N_BASES, N_BASES).sum(axis=1)
-    eff = [sum(int(sums[limb, b]) << (16 * limb) for limb in range(16)) for b in range(N_BASES)]
-    return (sum(e * k for e, k in zip(eff, dk)) % FR.p) * G1.pyref_spec.generator
-
-
 def _rank_dryrun(log_h: int, log_msm: int):
     dev = rank_device()
     world = dist.get_world_size()
@@ -110,9 +103,9 @@ def _rank_dryrun(log_h: int, log_msm: int):
     dom = Domain(log_h, device=dev)
     if not torch.equal(h, single_h_coeffs(dom, az, bz, cz)):
         raise AssertionError(f"distributed H pipeline at 2^{log_h} differs from the single-device pipeline")
-    if decode_points(G1, pt)[0] != msm_oracle(dk, sc_np, n):
+    if decode_points(G1, pt)[0] != oracle(G1, dk, sc_np[:, :n]):
         raise AssertionError(f"distributed G1 MSM at 2^{log_msm} differs from the host oracle")
-    if two_d and decode_points(G1, pt2)[0] != msm_oracle(dk, sc_np, n2):
+    if two_d and decode_points(G1, pt2)[0] != oracle(G1, dk, sc_np[:, :n2]):
         raise AssertionError(f"distributed G1 MSM on the 2-D mesh ({n2} points) differs from the host oracle")
 
     times = {"h_s": [], "h_single_s": [], "msm_s": [], "msm_single_s": []}

@@ -447,3 +447,26 @@ def test_dryrun_multichip_nccl_one_rank(dev):
     assert not any(rec["launches"][f"{k}_{c}"] for k in ec.KERNELS for c in ("g2", "grumpkin"))
     with pytest.raises(RuntimeError, match="CUDA devices"):
         launch(math.sqrt, torch.cuda.device_count() + 1, "nccl", args=(1.0,))
+
+
+def test_entry_on_the_card(dev):
+    """entry()'s fn (the G1 MSM, c = 8, over __graft_entry__.py's 128 points)
+    on the card equals entry.oracle(), launching each of K1-K4."""
+    from kogarashi_tpu_torch import entry
+
+    fn, args = entry.entry()
+    assert args[0].is_cuda
+    ec.reset_launches()
+    assert decode_points(G1, fn(*args))[0] == entry.oracle()
+    assert all(ec.LAUNCHES[f"{k}_g1"] > 0 for k in ec.KERNELS), ec.LAUNCHES
+
+
+def test_bench_run_on_the_card(dev):
+    """bench.run at 2^16 (c = 16, 2 reps) on the card: every call held to the
+    oracle (it raises otherwise), bench.py's keys and metric name."""
+    from kogarashi_tpu_torch import bench
+
+    result, info = bench.run(16, 16, 2)
+    assert set(result) == {"metric", "value", "unit", "vs_baseline"}
+    assert result["metric"] == "bn254_g1_msm_point_adds_per_s_2^16"
+    assert result["value"] == (1 << 16) * 16 / info["best"] and len(info["times"]) == 2

@@ -33,7 +33,7 @@ def test_port_imports_no_jax():
     assert files
     scanned = {f.relative_to(PORT).parts[0] for f in files}
     assert {"nova", "utils", "ops", "pyref", "r1cs", "groth16", "curves", "signature", "pallet",
-            "parallel"} <= scanned
+            "parallel", "benches", "bench.py", "entry.py"} <= scanned
     for f in files:
         for mod in _imports(f):
             top = mod.split(".")
@@ -67,6 +67,8 @@ _BLOCKED_RUN = _BLOCK + r"""
 import kogarashi_tpu_torch
 for m in pkgutil.walk_packages(kogarashi_tpu_torch.__path__, "kogarashi_tpu_torch."):
     importlib.import_module(m.name)
+assert {f"kogarashi_tpu_torch.{m}" for m in ("bench", "entry", "benches.groth16_large", "benches.ivc_chain",
+                                            "benches.microbench")} <= set(sys.modules)
 from kogarashi_tpu_torch.groth16 import SquareChainCircuit, setup
 
 circuit = SquareChainCircuit(16)
