@@ -13,6 +13,10 @@ with the card's name and power limit beside it:
            BLS12-381 Fr elements (mul, sqr, add, sub, neg), exactly, every
            pair of the carry-chain edge values (0, 1, p-1, p-2, R mod p, p's
            top word, values just below p) among them
+  ntt      N1 (csrc/ntt.cu) at the proof's shapes (idft and coset_dft of
+           (8, 3, 2^20), divide_by_z_on_coset and coset_idft of (8, 2^20)),
+           exactly against the plain version (`Domain.plain`) on the same
+           words, both timed on the device, N1 beside `ops/ntt.py::bound_ms`
   msm      2^20 G1 MSM (bench.py's workload, `kogarashi_tpu_torch.bench.
            workload`, c = 16) and a 2^16 G2 MSM against a host oracle; median
            of 3 with the host copy inside; the scan_proj (K2) launches each
@@ -72,7 +76,9 @@ with the card's name and power limit beside it:
            decoded (G2 subgroup check included) and verified again; the kernel launch
            counters of this run must all be > 0 for G1 and G2, and K2's and
            K4's by lane group (`ec.GROUP_LAUNCHES`) for every group of K2 and
-           K4's one-lane one
+           K4's one-lane one; N1's launches (`ntt.LAUNCHES`) must be the
+           setup's idft and the proof's four calls, a pass plan's each, and no
+           plain `Domain._fft` may run on the card
   distributed  the distributed leg (`kogarashi_tpu_torch.parallel`) under NCCL,
            one rank per visible card (`dryrun_multichip`): the H pipeline at
            2^20 (the groth16 phase's domain) on the 4-step DistributedDomain,
@@ -115,7 +121,8 @@ with the card's name and power limit beside it:
 The last lines are the kernels' JSON record (name, route, source, replaces,
 launches (on the kernel's path: Groth16's for G1 and G2, Nova's for
 Grumpkin, the 1024-signature batch_verify's for E1-E3, the verify
-equation's for P1-P3), path, launches_by_path (for G1's also the
+equation's for P1-P3, setup's and one proof's for N1, by method in
+launches_by_method), path, launches_by_path (for G1's also the
 distributed path's, counted inside rank 0, and the entry and bench steps';
 every kernel's also the micro phase's), max_abs_err, ms, plain_ms,
 bound_ms, bound_by, bound_share, library_ms, shape, times, g for K2 and K4,
@@ -124,7 +131,8 @@ K2 msm_sum_ms and msm_sum_bound_ms, for K4 at one lane, E1 at 2048 lanes,
 E2 and E3 at 1024 floor_ms, for P1 and P2 threads, one_thread_floor_ms,
 depth_floor_ms and its share, levels, the build's registers and the host's
 seconds, for P3 (at one lane) p3_route, depth_floor_ms, other_ops, wide (2^16
-lanes) and launches_by_route), the card, and {"ok": true, "device": {...}}. Without a
+lanes) and launches_by_route, for N1 (`ntt`, the proof's idft at
+(8, 3, 2^20)) sm_clock_mhz, passes and other_methods), the card, and {"ok": true, "device": {...}}. Without a
 CUDA device it exits non-zero.
 """
 
@@ -173,6 +181,10 @@ PAIR_REPLACES = {
 }
 P3_LANES = 1 << 16  # P3 is held to its plain version and timed at this many lanes and at one, every op
 PAIRING_SEED = 0x9A1
+NTT_SOURCE = "kogarashi_tpu_torch/csrc/ntt.cu"
+NTT_REPLACES = "kogarashi_tpu/ops/ntt.py:39 (Domain: its butterfly stages as jnp ops; XLA, no Pallas kernel)"
+# the proof's N1 calls (groth16/prover.py): method -> rows of 2^LOG2_CONSTRAINTS
+NTT_PROOF_CALLS = {"idft": 3, "coset_dft": 3, "divide_by_z_on_coset": 1, "coset_idft": 1}
 REPLACES = {
     "scan_mixed": "kogarashi_tpu/ops/ec_pallas.py:336",
     "scan_proj": "kogarashi_tpu/ops/ec_pallas.py:336",
@@ -300,6 +312,47 @@ def phase_field(dev, card: str, n: int = 1 << 16) -> None:
         log("field", f"{spec.name}: mul sqr add sub neg exact on {n} elements, the first "
                      f"{len(pairs)} every pair of the edge values (0, 1, p-1, p-2, R mod p, p's top word, "
                      f"just below p)")
+
+
+def phase_ntt(dev, card: str, k: int) -> dict:
+    """N1 at the proof's shapes (NTT_PROOF_CALLS), exactly against the plain
+    version on the same words; both timed on the device, N1 beside its bound
+    at the SM clock under load. Returns {method: record}."""
+    import numpy as np
+    import torch
+
+    from kogarashi_tpu_torch.fields.spec import FR
+    from kogarashi_tpu_torch.ops import ntt
+
+    t0 = time.perf_counter()
+    dom = ntt.Domain(k, device=dev)
+    log("ntt", f"Domain(2^{k}) tables in {time.perf_counter() - t0:.2f} s")
+    n = dom.n
+    rng = np.random.default_rng(0x4E7)
+    words = rng.integers(0, 1 << 32, size=(8, 3 * n), dtype=np.uint64)
+    words[7] %= FR.p >> 224  # below p
+    edges = edge_values(FR.p)
+    words[:, : len(edges)] = np.array([[(v >> (32 * i)) & 0xFFFFFFFF for v in edges] for i in range(8)])
+    x3 = torch.from_numpy(words.astype(np.uint32).view(np.int32)).reshape(8, 3, n).to(dev)
+    record = {}
+    for method, rows in NTT_PROOF_CALLS.items():
+        x = x3 if rows == 3 else x3[:, 0].contiguous()
+        fn = getattr(dom, method)
+        want, plain_ms = timed(lambda: dom.plain(method, x))
+        got = fn(x)
+        torch.cuda.synchronize()
+        err = max_abs_err(got, want)
+        if err:
+            raise AssertionError(f"N1 {method} at {tuple(x.shape)} differs from the plain version")
+        ms = cuda_ms(lambda: fn(x), reps=20)
+        clock = sm_clock_under_load(lambda: fn(x))
+        bound, by = ntt.bound_ms(method, rows, k, clock)
+        record[method] = dict(shape=list(x.shape), max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound,
+                              bound_by=by, bound_share=bound / ms, sm_clock_mhz=clock / 1e6,
+                              passes=len(ntt.pass_plan(k)) if method != "divide_by_z_on_coset" else 1)
+        log("ntt", f"{method} {tuple(x.shape)}: exact; {ms:.4f} ms, bound {bound:.4f} ms ({by}, SM clock "
+                   f"{clock / 1e6:.0f} MHz), share {bound / ms:.3f}, plain {plain_ms:.1f} ms ({card})")
+    return record
 
 
 def random_points(curve, m: int, seed: int, dev):
@@ -953,15 +1006,33 @@ def phase_groth16(dev, card: str, log2_m: int) -> tuple:
     for G1 and G2, and K2 and K4 at every lane group of the path."""
     from kogarashi_tpu_torch.benches import groth16_large
     from kogarashi_tpu_torch.curves import G1, G2
-    from kogarashi_tpu_torch.ops import ec
+    from kogarashi_tpu_torch.ops import ec, ntt
     from kogarashi_tpu_torch.utils.serde import decode_groth16_proof, encode_groth16_proof
 
     logging.basicConfig(format="[groth16] %(message)s", stream=sys.stdout)
     for name in ("kogarashi_tpu_torch.groth16.setup", "kogarashi_tpu_torch.groth16.prover"):
         logging.getLogger(name).setLevel(logging.INFO)
     ec.reset_launches()  # counts from here on are the main path's
-    record, (proof, inputs, verifier) = groth16_large.run(log2_m, dev)
+    ntt.reset_launches()
+    plain_fft = []
+    real_fft = ntt.Domain._fft
+
+    def fft_spy(self, x, twiddles):
+        plain_fft.append(x.device)
+        return real_fft(self, x, twiddles)
+
+    ntt.Domain._fft = fft_spy
+    try:
+        record, (proof, inputs, verifier) = groth16_large.run(log2_m, dev)
+    finally:
+        ntt.Domain._fft = real_fft
     launches = dict(ec.LAUNCHES)
+    passes = len(ntt.pass_plan(log2_m))
+    want_ntt = {"dft": 0, "idft": 2 * passes, "coset_dft": passes, "coset_idft": passes, "divide_by_z_on_coset": 1}
+    if ntt.LAUNCHES != want_ntt or plain_fft:
+        raise AssertionError(f"N1 on the Groth16 path: launches {ntt.LAUNCHES}, want {want_ntt} (setup's idft, "
+                             f"the proof's four calls); plain _fft calls on {plain_fft}")
+    launches.update({f"ntt_{m}": v for m, v in ntt.LAUNCHES.items()})
     by_group = {k: dict(sorted(v.items())) for k, v in ec.GROUP_LAUNCHES.items()}
     data = encode_groth16_proof(proof)
     back = decode_groth16_proof(data)  # validates A, C on G1 and B in G2's r-order subgroup
@@ -980,6 +1051,9 @@ def phase_groth16(dev, card: str, log2_m: int) -> tuple:
                    f"verify {record['verify_s']:.3f} s; verify True, tampered input rejected; the proof's {len(data)} "
                    f"bytes decode (G2 subgroup check) and verify ({card})")
     log("groth16", f"launches: {json.dumps(launches)}")
+    log("groth16", f"N1 launches: setup's idft {passes}, the proof's {sum(want_ntt.values()) - passes} "
+                   f"({sum(v for k, v in NTT_PROOF_CALLS.items() if k != 'divide_by_z_on_coset')} transforms of "
+                   f"2^{log2_m} and a scaling); no plain _fft on the card")
     log("groth16", f"K2 and K4 launches by lane group g: {json.dumps(by_group)}")
     return launches, by_group, (proof, inputs, verifier.vk)
 
@@ -1237,6 +1311,7 @@ def main() -> int:
         return out
 
     run("field", phase_field, dev, card)
+    ntt_record = run("ntt", phase_ntt, dev, card, LOG2_CONSTRAINTS)
     g1_msm_s, _, k2_launches = run("msm", msm_check, G1, LOG2_MSM, 16, 0xBE7C4, 1, dev, card)
     run("msm", msm_check, G2, 16, None, 0xBE7C5, 2, dev, card)
     bench_launches = run("entry and bench", phase_bench, dev, card)
@@ -1276,6 +1351,12 @@ def main() -> int:
         kernels.append(dict(name=key, route="cuda", source=PAIR_SOURCE, replaces=PAIR_REPLACES[key],
                             launches=pair_launches[key], path="groth16_verify",
                             launches_by_path={"groth16_verify": pair_launches[key]}, library_ms=None, **rec))
+    ntt_launches = {k[4:]: v for k, v in g16_launches.items() if k.startswith("ntt_")}
+    kernels.append(dict(name="ntt", route="cuda", source=NTT_SOURCE, replaces=NTT_REPLACES,
+                        launches=sum(ntt_launches.values()), path="groth16",
+                        launches_by_path={"groth16": sum(ntt_launches.values())}, launches_by_method=ntt_launches,
+                        library_ms=None, **ntt_record["idft"], method="idft",
+                        other_methods={k: v for k, v in ntt_record.items() if k != "idft"}))
     log("done", f"every phase in {time.perf_counter() - t_start:.1f} s; by phase, s: "
                 f"{json.dumps({k: round(v, 1) for k, v in phase_s.items()})} ({card})")
     print(json.dumps({"kernels": kernels}), flush=True)

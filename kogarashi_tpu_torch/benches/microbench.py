@@ -10,7 +10,7 @@ one {"bench": "backend", "value": 0, "unit": <the card's name>}. Groups
 (`--only`):
   field   Fr and Fq add, sub, mul, square on `batch` lanes and invert on
           batch / 16, on the port's plain field engine (`fields.mont.Fp`,
-          the math of the NTT, SpMV and setup on the card)
+          the math of the SpMV and setup on the card)
   curve   add, double, scalar_mul for g1, grumpkin, g2 (batch / 4) on
           `curves.point` (padd = K3, pdouble = K4 t = 1, scalar_mul = 256 x
           K4 and K3) and jubjub on `curves.edwards` (add = E2, double = E3,

@@ -19,8 +19,8 @@ at 12 words, 2p < 2^384 (BLS12-381's Fq, 381 bits).
 
 This module is the plain version of `csrc/field.cuh` and the counterpart of
 `kogarashi_tpu/fields/mont.py` and of the plain path of
-`kogarashi_tpu/fields/mont_pallas.py`. On the card the NTT, the SpMV and
-setup's field math run on it.
+`kogarashi_tpu/fields/mont_pallas.py`. On the card the SpMV, the prover's
+pointwise algebra and setup's field math run on it.
 """
 
 from __future__ import annotations

@@ -46,6 +46,10 @@ _PAIR_SIGNATURES = {  # csrc/pairing.cu
     "kt_f12_map": [I, P, P, P, I, P, I, P],
     "kt_f12_sched": [P, P, P, I, P, I, P],
 }
+_NTT_SIGNATURES = {  # csrc/ntt.cu
+    "kt_ntt_pass_fr": [P, P, P, P, I, P, I, ctypes.c_longlong, I, I, I, I, P],
+    "kt_ntt_scale_fr": [P, P, P, ctypes.c_longlong, P],
+}
 _FIELD_SIGNATURE = [P, P, P, I, I, P]
 _PROBE_SIGNATURES = {"kt_imad_probe_info": [I, P], "kt_imad_probe": [I, I, I, P, P, P],
                      "kt_mul_latency": [I, I, P, P, P], "kt_empty": [P],
@@ -166,6 +170,7 @@ def _demangle(name: str) -> str:
                  "pdouble_group_kernel", "padd_kernel", "pdouble_kernel", "field_op_kernel",
                  "ed_scalar_mul_kernel", "ed_map_add_kernel", "ed_map_double_kernel",
                  "pair_miller_loop_kernel", "pair_final_exp_kernel", "f12_map_kernel", "f12_sched_kernel",
+                 "ntt_pass_kernel", "ntt_scale_kernel",
                  "fp_mul_call", "imad_wide_probe_kernel", "imad_probe_kernel",
                  "mul_latency_kernel", "empty_kernel", "spin_kernel"):
         if kern in name:
@@ -192,7 +197,7 @@ def lib() -> ctypes.CDLL:
             fn = getattr(handle, fmt.format(c="jubjub"))
             fn.argtypes = args
             fn.restype = ctypes.c_int
-        for fname, args in _PAIR_SIGNATURES.items():
+        for fname, args in {**_PAIR_SIGNATURES, **_NTT_SIGNATURES}.items():
             fn = getattr(handle, fname)
             fn.argtypes = args
             fn.restype = ctypes.c_int

@@ -15,7 +15,7 @@ Any leading axes between the word axis and the two domain axes are a batch
 (the H pipeline carries A, B and C together).
 
 The local DFTs are the port's `ops/ntt.py::Domain` over the last axis
-(plain torch, as in both packages). Each rank builds only its own columns of
+(N1 on the card, its plain version on the CPU). Each rank builds only its own columns of
 the twiddle and coset tables, on its device, by repeated doubling with the
 field engine; the JAX package builds each whole table in a Python loop over
 2^k ints (:51-93).

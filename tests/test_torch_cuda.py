@@ -470,3 +470,81 @@ def test_bench_run_on_the_card(dev):
     assert set(result) == {"metric", "value", "unit", "vs_baseline"}
     assert result["metric"] == "bn254_g1_msm_point_adds_per_s_2^16"
     assert result["value"] == (1 << 16) * 16 / info["best"] and len(info["times"]) == 2
+
+
+# ---------------------------------------------------------------------------
+# N1 (csrc/ntt.cu) against the plain version, word for word
+# ---------------------------------------------------------------------------
+
+NTT_KS = [1, 2, 5, 10, 11, 12, 20]
+_DOMAINS: dict = {}
+
+
+def _domain(k, dev):
+    from kogarashi_tpu_torch.ops import ntt
+
+    if k not in _DOMAINS:
+        _DOMAINS[k] = ntt.Domain(k, device=dev)
+    return _DOMAINS[k]
+
+
+def _fr_rows(rows, n, seed, dev):
+    """(8, rows, n) Fr words: 0, 1, p - 1 and values with p's top word first
+    (`_edge_values`), then uniform values below p."""
+    rng = np.random.default_rng(seed)
+    w = rng.integers(0, 1 << 32, size=(8, rows * n), dtype=np.uint64)
+    w[7] %= FR.p >> 224  # the top word below p's: every value below p
+    edges = np.array([[(v >> (32 * i)) & 0xFFFFFFFF for v in _edge_values(FR.p)] for i in range(8)], np.uint64)
+    cut = min(edges.shape[1], rows * n)
+    w[:, :cut] = edges[:, :cut]
+    return torch.from_numpy(w.astype(np.uint32).view(np.int32)).reshape(8, rows, n).to(dev)
+
+
+@pytest.mark.parametrize("layout", ["rows1", "rows3", "transposed"])
+@pytest.mark.parametrize("k", NTT_KS)
+def test_ntt_kernel_matches_plain(dev, k, layout):
+    """Every Domain method on the card equals the plain version on the same
+    words: (8, n), (8, 3, n), and a transposed, non-contiguous (8, 2, n) as
+    parallel/ntt.py passes its local DFTs."""
+    dom = _domain(k, dev)
+    n = dom.n
+    if layout == "rows1":
+        x = _fr_rows(1, n, k, dev)[:, 0]
+    elif layout == "rows3":
+        x = _fr_rows(3, n, k, dev)
+    else:
+        x = _fr_rows(1, 2 * n, k, dev).reshape(8, n, 2).transpose(-1, -2)
+        assert not x.is_contiguous()
+    for method in ("dft", "idft", "coset_dft", "coset_idft", "divide_by_z_on_coset"):
+        got = getattr(dom, method)(x)
+        assert got.shape == x.shape and got.dtype == torch.int32
+        assert torch.equal(got, dom.plain(method, x)), method
+
+
+@pytest.mark.parametrize("k", NTT_KS)
+def test_ntt_kernel_roundtrip(dev, k):
+    dom = _domain(k, dev)
+    x = _fr_rows(3, dom.n, 100 + k, dev)
+    assert torch.equal(dom.idft(dom.dft(x)), x)
+    assert torch.equal(dom.coset_idft(dom.coset_dft(x)), x)
+
+
+def test_ntt_launches_and_refusals(dev):
+    """ntt.LAUNCHES counts each launch under its method (a pass each, one for
+    the scaling); a CUDA tensor on a non-Fr Domain, or on a CPU Domain, raises."""
+    from kogarashi_tpu_torch.ops import ntt
+
+    dom = _domain(20, dev)
+    x = _fr_rows(1, dom.n, 7, dev)
+    ntt.reset_launches()
+    dom.idft(x)
+    dom.coset_dft(x)
+    dom.divide_by_z_on_coset(x)
+    passes = len(ntt.pass_plan(20))
+    assert ntt.LAUNCHES == {"dft": 0, "idft": passes, "coset_dft": passes, "coset_idft": 0,
+                            "divide_by_z_on_coset": 1}
+    with pytest.raises(ValueError, match="N1"):
+        ntt.Domain(1, FQ, device=dev).dft(torch.zeros(8, 2, dtype=torch.int32, device=dev))  # Fq: 2-adicity 1
+    with pytest.raises(ValueError, match="N1"):
+        ntt.Domain(5, device="cpu").dft(torch.zeros(8, 32, dtype=torch.int32, device=dev))
+    assert ntt.LAUNCHES["dft"] == 0
