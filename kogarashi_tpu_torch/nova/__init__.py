@@ -10,7 +10,7 @@ verification (EC scalar muls + BigNat non-native arithmetic), and the
 two-curve IVC ping-pong emitting recursive proofs.
 """
 
-from .function import ExampleFunction, FunctionCircuit
+from .function import COUNTS, ExampleFunction, FunctionCircuit, MinRootFunction, TrivialFunction, reset_counts
 from .ivc import Ivc, PublicParams
 from .nifs import NifsProver, NifsVerifier
 from .pedersen import PedersenCommitment
@@ -26,8 +26,12 @@ from .relaxed_r1cs import (
 from .augmented import AugmentedFCircuit
 
 __all__ = [
+    "COUNTS",
     "ExampleFunction",
     "FunctionCircuit",
+    "MinRootFunction",
+    "TrivialFunction",
+    "reset_counts",
     "Ivc",
     "PublicParams",
     "NifsProver",

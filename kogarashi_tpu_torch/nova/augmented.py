@@ -16,6 +16,7 @@ from typing import Optional
 
 from .. import constants as CONST
 from ..r1cs import FieldAssignment as FA, PointAssignment, R1CS
+from .function import synthesize
 from .gadgets.instance import R1csInstanceAssignment, RelaxedR1csInstanceAssignment
 from .gadgets.mimc import MimcROCircuit
 from .gadgets.nifs import NifsCircuit
@@ -25,10 +26,11 @@ from .relaxed_r1cs import R1csInstance, RelaxedR1csInstance
 @dataclass
 class AugmentedFCircuit:
     """C = the *other* driver (whose instances are folded in this circuit);
-    fc = FunctionCircuit class over this circuit's scalar field."""
+    fc = the step function over this circuit's scalar field: a FunctionCircuit
+    class, or an instance carrying its step's advice; z_0 has its arity."""
 
     other_driver: object
-    fc: type
+    fc: object
     is_primary: bool = True
     i: int = 0
     z_0: list = dc_field(default_factory=lambda: [0])
@@ -79,7 +81,7 @@ class AugmentedFCircuit:
             cs, u_range_next_base, u_range_next_non_base, base_case
         )
 
-        z_next = self.fc.invoke_cs(cs, z_i)
+        z_next = synthesize(self.fc, cs, z_i, "primary" if self.is_primary else "secondary")
 
         u_next_x = u_range_next.hash(
             cs, i + FA.constant(cs, 1), z_0, z_next

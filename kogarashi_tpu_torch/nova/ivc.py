@@ -10,6 +10,14 @@ PublicParams::setup synthesizes both augmented circuits to freeze shapes and
 sample Pedersen keys; Ivc::init runs the step-0 circuits; Ivc::prove_step
 folds the secondary, re-synthesizes the primary, folds the primary, and
 re-synthesizes the secondary, emitting a RecursiveProof.
+
+A step function declares its arity; setup freezes the shapes with zero
+states of it. A step function with per-step advice (`MinRootFunction`) is
+set up with a shape-only instance, and `Ivc(...)` and `prove_step` take each
+step's own instances, as microsoft/Nova's `RecursiveSNARK::new` and
+`prove_step` take the step's circuits: the circuits given to `Ivc` make
+z_1, the first `prove_step` (i = 0) only emits that proof, and the
+`prove_step` at i makes z_{i+1}. Without them, both use `pp`'s.
 """
 
 from __future__ import annotations
@@ -37,23 +45,25 @@ class PublicParams:
     shape_secondary: R1csShape
     ck_primary: PedersenCommitment
     ck_secondary: PedersenCommitment
-    fc_primary: type
-    fc_secondary: type
+    fc_primary: object
+    fc_secondary: object
 
     @classmethod
-    def setup(cls, fc_primary: type, fc_secondary: type, rng: random.Random, device=None):
-        """ivc.rs:272 — synthesize both augmented circuits, freeze shapes,
-        sample 2^ceil(log2 m)+1-point Pedersen keys, on `device` (None: the
-        card)."""
+    def setup(cls, fc_primary, fc_secondary, rng: random.Random, device=None):
+        """ivc.rs:272 — synthesize both augmented circuits on zero states of
+        the step functions' arities, freeze shapes, sample
+        2^ceil(log2 m)+1-point Pedersen keys, on `device` (None: the card)."""
         e1, e2 = BN254_DRIVER, GRUMPKIN_DRIVER
         device = resolve(device)
 
         cs1 = R1CS(e1)
-        AugmentedFCircuit(other_driver=e2, fc=fc_primary, is_primary=True).generate(cs1)
+        AugmentedFCircuit(other_driver=e2, fc=fc_primary, is_primary=True,
+                          z_0=[0] * fc_primary.arity).generate(cs1)
         shape_primary = R1csShape.from_r1cs(cs1, device)
 
         cs2 = R1CS(e2)
-        AugmentedFCircuit(other_driver=e1, fc=fc_secondary, is_primary=False).generate(cs2)
+        AugmentedFCircuit(other_driver=e1, fc=fc_secondary, is_primary=False,
+                          z_0=[0] * fc_secondary.arity).generate(cs2)
         shape_secondary = R1csShape.from_r1cs(cs2, device)
 
         k1 = max((shape_primary.m - 1).bit_length(), 1)
@@ -78,8 +88,10 @@ class PublicParams:
 
 
 class Ivc:
-    def __init__(self, pp: PublicParams, z0_primary: list, z0_secondary: list):
-        """ivc.rs:51 init — run the two step-0 circuits."""
+    def __init__(self, pp: PublicParams, z0_primary: list, z0_secondary: list,
+                 primary=None, secondary=None):
+        """ivc.rs:51 init — run the two step-0 circuits (`primary` and
+        `secondary`: step 0's step functions; None: pp's)."""
         e1, e2 = BN254_DRIVER, GRUMPKIN_DRIVER
         self.pp = pp
         self.i = 0
@@ -88,8 +100,8 @@ class Ivc:
 
         cs_primary = R1CS(e1)
         circuit_primary = AugmentedFCircuit(
-            other_driver=e2, fc=pp.fc_primary, is_primary=True, i=0,
-            z_0=self.z0_primary,
+            other_driver=e2, fc=pp.fc_primary if primary is None else primary,
+            is_primary=True, i=0, z_0=self.z0_primary,
         )
         zi_primary = circuit_primary.generate(cs_primary)
 
@@ -100,8 +112,8 @@ class Ivc:
 
         cs_secondary = R1CS(e2)
         circuit_secondary = AugmentedFCircuit(
-            other_driver=e1, fc=pp.fc_secondary, is_primary=False, i=0,
-            z_0=self.z0_secondary, u_single=u_single_primary,
+            other_driver=e1, fc=pp.fc_secondary if secondary is None else secondary,
+            is_primary=False, i=0, z_0=self.z0_secondary, u_single=u_single_primary,
         )
         zi_secondary = circuit_secondary.generate(cs_secondary)
 
@@ -169,8 +181,9 @@ class Ivc:
             w_range_secondary=self.w_range_secondary,
         )
 
-    def prove_step(self) -> RecursiveProof:
-        """ivc.rs:132 — one fold-and-extend step."""
+    def prove_step(self, primary=None, secondary=None) -> RecursiveProof:
+        """ivc.rs:132 — one fold-and-extend step; `primary` and `secondary`
+        are step i's step functions (None: pp's), unused at i = 0."""
         e1, e2 = BN254_DRIVER, GRUMPKIN_DRIVER
         pp = self.pp
         if self.i == 0:
@@ -190,7 +203,8 @@ class Ivc:
 
         cs_primary = R1CS(e1)
         circuit_primary = AugmentedFCircuit(
-            other_driver=e2, fc=pp.fc_primary, is_primary=True, i=self.i,
+            other_driver=e2, fc=pp.fc_primary if primary is None else primary,
+            is_primary=True, i=self.i,
             z_0=self.z0_primary, z_i=self.zi_primary,
             u_single=self.u_single_secondary,
             u_range=self.u_range_secondary,
@@ -214,7 +228,8 @@ class Ivc:
 
         cs_secondary = R1CS(e2)
         circuit_secondary = AugmentedFCircuit(
-            other_driver=e1, fc=pp.fc_secondary, is_primary=False, i=self.i,
+            other_driver=e1, fc=pp.fc_secondary if secondary is None else secondary,
+            is_primary=False, i=self.i,
             z_0=self.z0_secondary, z_i=self.zi_secondary,
             u_single=u_single_next_primary,
             u_range=self.u_range_primary,
