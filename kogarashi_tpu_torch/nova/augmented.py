@@ -2,7 +2,7 @@
 
 The port's own copy of `kogarashi_tpu/nova/augmented.py`.
 
-Generated inside an R1cs over CS (the *companion* driver of C): allocates the
+Generated inside an R1CS or a WitnessCS over CS (the *companion* driver of C): allocates the
 step inputs, checks `u_single.x0 == hash(i, z0, zi, u_range)` (except in the
 base case), squeezes the folding challenge, verifies the NIFS fold in-circuit,
 runs the user step function, and exposes (u_single.x1, hash of the next
@@ -15,8 +15,8 @@ from dataclasses import dataclass, field as dc_field
 from typing import Optional
 
 from .. import constants as CONST
-from ..r1cs import FieldAssignment as FA, PointAssignment, R1CS
-from .function import synthesize
+from ..r1cs import FieldAssignment as FA, PointAssignment
+from .function import count_synthesis, synthesize
 from .gadgets.instance import R1csInstanceAssignment, RelaxedR1csInstanceAssignment
 from .gadgets.mimc import MimcROCircuit
 from .gadgets.nifs import NifsCircuit
@@ -39,9 +39,11 @@ class AugmentedFCircuit:
     u_range: Optional[RelaxedR1csInstance] = None
     commit_t: Optional[object] = None  # pyref AffinePoint
 
-    def generate(self, cs: R1CS) -> list:
-        """Returns z_next FieldAssignments (augmented.rs:42-125)."""
+    def generate(self, cs) -> list:
+        """Returns z_next FieldAssignments (augmented.rs:42-125); `cs` is an
+        R1CS (rows and values) or a WitnessCS (values only)."""
         C = self.other_driver
+        m = cs.m
         i = FA.witness(cs, self.i)
         z_0 = [FA.witness(cs, v) for v in self.z_0]
         z_i_vals = self.z_i if self.z_i is not None else list(self.z_0)
@@ -89,6 +91,7 @@ class AugmentedFCircuit:
 
         FA.inputize(cs, u_single.x1)
         FA.inputize(cs, u_next_x)
+        count_synthesis(cs, cs.m - m)
         return z_next
 
     @staticmethod

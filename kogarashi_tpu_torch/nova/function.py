@@ -6,7 +6,8 @@ that declare their arity and may carry per-step advice: `ExampleFunction`
 and `TrivialFunction` are classes of static methods, `MinRootFunction` an
 instance holding its step's hints. `synthesize` runs a step function inside
 the augmented circuit, counts what it consumed in `COUNTS` and marks its
-time (INFO, "nova <side> step synthesis").
+time (INFO, "nova <side> step synthesis"); `count_synthesis` counts a whole
+augmented circuit's constraints there by the kind of system.
 """
 
 from __future__ import annotations
@@ -14,17 +15,26 @@ from __future__ import annotations
 import logging
 from abc import ABC, abstractmethod
 
+from ..r1cs import WitnessCS
 from ..stages import Stages
 
 LOG = logging.getLogger(__name__)
 
-# steps synthesized, and the constraints and advice entries they consumed
-COUNTS: dict = {"steps": 0, "constraints": 0, "advice": 0}
+# steps synthesized, and the constraints and advice entries they consumed;
+# the constraints of whole augmented circuits, synthesized values only (a
+# WitnessCS) and with their rows (an R1CS)
+COUNTS: dict = {"steps": 0, "constraints": 0, "advice": 0,
+                "constraints_witness_only": 0, "constraints_with_rows": 0}
 
 
 def reset_counts() -> None:
     for k in COUNTS:
         COUNTS[k] = 0
+
+
+def count_synthesis(cs, m: int) -> None:
+    """m constraints synthesized into `cs`, counted by its kind."""
+    COUNTS["constraints_witness_only" if isinstance(cs, WitnessCS) else "constraints_with_rows"] += m
 
 
 def synthesize(fc, cs, z_i: list, side: str) -> list:

@@ -6,10 +6,13 @@ there, and every commitment is an MSM on it (G1 for the primary circuit,
 Grumpkin for the secondary). Synthesis, transcripts and folds stay on the
 host.
 
-PublicParams::setup synthesizes both augmented circuits to freeze shapes and
-sample Pedersen keys; Ivc::init runs the step-0 circuits; Ivc::prove_step
-folds the secondary, re-synthesizes the primary, folds the primary, and
-re-synthesizes the secondary, emitting a RecursiveProof.
+PublicParams::setup synthesizes both augmented circuits into `R1CS`s to
+freeze shapes and sample Pedersen keys; Ivc::init runs the step-0 circuits;
+Ivc::prove_step folds the secondary, re-synthesizes the primary, folds the
+primary, and re-synthesizes the secondary, emitting a RecursiveProof. With
+the shapes frozen, Ivc::init and Ivc::prove_step synthesize into
+`WitnessCS`s, which keep the values and build no rows (microsoft/Nova's
+`prove_step` synthesizes into bellpepper's `SatisfyingAssignment`).
 
 A step function declares its arity; setup freezes the shapes with zero
 states of it. A step function with per-step advice (`MinRootFunction`) is
@@ -26,7 +29,7 @@ import random
 from dataclasses import dataclass
 
 from ..devices import resolve
-from ..r1cs import BN254_DRIVER, GRUMPKIN_DRIVER, R1CS
+from ..r1cs import BN254_DRIVER, GRUMPKIN_DRIVER, R1CS, WitnessCS
 from .augmented import AugmentedFCircuit
 from .nifs import NifsProver
 from .pedersen import PedersenCommitment
@@ -98,7 +101,7 @@ class Ivc:
         self.z0_primary = list(z0_primary)
         self.z0_secondary = list(z0_secondary)
 
-        cs_primary = R1CS(e1)
+        cs_primary = WitnessCS(e1)
         circuit_primary = AugmentedFCircuit(
             other_driver=e2, fc=pp.fc_primary if primary is None else primary,
             is_primary=True, i=0, z_0=self.z0_primary,
@@ -110,7 +113,7 @@ class Ivc:
         )
         self.prover_primary = NifsProver(pp.shape_primary, pp.ck_primary)
 
-        cs_secondary = R1CS(e2)
+        cs_secondary = WitnessCS(e2)
         circuit_secondary = AugmentedFCircuit(
             other_driver=e1, fc=pp.fc_secondary if secondary is None else secondary,
             is_primary=False, i=0, z_0=self.z0_secondary, u_single=u_single_primary,
@@ -201,7 +204,7 @@ class Ivc:
             self.w_single_secondary,
         )
 
-        cs_primary = R1CS(e1)
+        cs_primary = WitnessCS(e1)
         circuit_primary = AugmentedFCircuit(
             other_driver=e2, fc=pp.fc_primary if primary is None else primary,
             is_primary=True, i=self.i,
@@ -226,7 +229,7 @@ class Ivc:
             w_single_next_primary,
         )
 
-        cs_secondary = R1CS(e2)
+        cs_secondary = WitnessCS(e2)
         circuit_secondary = AugmentedFCircuit(
             other_driver=e1, fc=pp.fc_secondary if secondary is None else secondary,
             is_primary=False, i=self.i,

@@ -25,6 +25,7 @@ from ..fields import mont
 from ..fields.spec import FQ, FR, FieldSpec
 from ..ops import spmv
 from ..pyref import MimcRO
+from ..r1cs import WitnessCS
 
 
 @dataclass(eq=False)
@@ -43,7 +44,10 @@ class R1csShape:
 
     @classmethod
     def from_r1cs(cls, cs, device=None) -> "R1csShape":
-        """`device`: where the products run (None: the card)."""
+        """`device`: where the products run (None: the card). A WitnessCS
+        has no rows to freeze, and raises."""
+        if isinstance(cs, WitnessCS):
+            raise TypeError("a WitnessCS keeps no rows: freeze a shape from an R1CS")
         device = resolve(device)
         return cls(
             driver=cs.driver,

@@ -7,58 +7,61 @@ product), equality/selection gadgets with inverse-witness tricks.
 
 from __future__ import annotations
 
-from ..system import LinComb, ONE
 from .binary import BinaryAssignment
 
 
 class FieldAssignment:
-    __slots__ = ("lc",)
+    """A linear combination of wires, of the system's kind (`cs.wire_lc`),
+    and its value mod p, computed as it is built."""
 
-    def __init__(self, lc: LinComb):
+    __slots__ = ("lc", "v")
+
+    def __init__(self, lc, v: int):
         self.lc = lc
+        self.v = v
 
     # -- allocation --------------------------------------------------------
     @classmethod
     def instance(cls, cs, value: int):
         wire = cs.public_wire()
-        cs.x.append(value % cs.p)
-        return cls(LinComb.from_wire(cs.p, wire))
+        v = value % cs.p
+        cs.x.append(v)
+        return cls(cs.wire_lc(wire), v)
 
     @classmethod
     def witness(cls, cs, value: int):
         wire = cs.private_wire()
-        cs.w.append(value % cs.p)
-        return cls(LinComb.from_wire(cs.p, wire))
+        v = value % cs.p
+        cs.w.append(v)
+        return cls(cs.wire_lc(wire), v)
 
     @classmethod
     def inputize(cls, cs, witness: "FieldAssignment"):
         wire = cs.public_wire()
-        cs.x.append(witness.lc.evaluate(cs.x, cs.w))
-        return cls(LinComb.from_wire(cs.p, wire))
+        cs.x.append(witness.v)
+        return cls(cs.wire_lc(wire), witness.v)
 
     @classmethod
-    def constant(cls, cs_or_p, c: int):
-        p = cs_or_p if isinstance(cs_or_p, int) else cs_or_p.p
-        return cls(LinComb.from_const(p, c))
+    def constant(cls, cs, c: int):
+        return cls(cs.const_lc(c), c % cs.p)
 
     @classmethod
     def from_binary_in(cls, cs, b: BinaryAssignment):
-        return cls(LinComb.from_wire(cs.p, b.wire))
+        return cls(cs.wire_lc(b.wire), cs.wire_value(b.wire))
 
     def value(self, cs) -> int:
-        return self.lc.evaluate(cs.x, cs.w)
+        return self.v
 
     # -- arithmetic (constant-folding like the reference) ------------------
     @classmethod
     def mul(cls, cs, x: "FieldAssignment", y: "FieldAssignment"):
         cx = x.lc.as_constant()
         if cx is not None:
-            return cls(y.lc.scale(cx))
+            return cls(y.lc.scale(cx), y.v * cx % cs.p)
         cy = y.lc.as_constant()
         if cy is not None:
-            return cls(x.lc.scale(cy))
-        w = x.value(cs) * y.value(cs) % cs.p
-        z = cls.witness(cs, w)
+            return cls(x.lc.scale(cy), x.v * cy % cs.p)
+        z = cls.witness(cs, x.v * y.v)
         cs.mul_gate(x.lc, y.lc, z.lc)
         return z
 
@@ -70,23 +73,22 @@ class FieldAssignment:
     def add(cls, cs, x: "FieldAssignment", y: "FieldAssignment"):
         cx = x.lc.as_constant()
         if cx is not None:
-            return cls(y.lc + LinComb.from_const(cs.p, cx))
+            return cls(y.lc + cs.const_lc(cx), (y.v + cx) % cs.p)
         cy = y.lc.as_constant()
         if cy is not None:
-            return cls(x.lc + LinComb.from_const(cs.p, cy))
-        w = (x.value(cs) + y.value(cs)) % cs.p
-        z = cls.witness(cs, w)
+            return cls(x.lc + cs.const_lc(cy), (x.v + cy) % cs.p)
+        z = cls.witness(cs, x.v + y.v)
         cs.add_gate(x.lc, y.lc, z.lc)
         return z
 
     def __add__(self, o):
-        return FieldAssignment(self.lc + o.lc)
+        return FieldAssignment(self.lc + o.lc, (self.v + o.v) % self.lc.p)
 
     def __sub__(self, o):
-        return FieldAssignment(self.lc - o.lc)
+        return FieldAssignment(self.lc - o.lc, (self.v - o.v) % self.lc.p)
 
     def __neg__(self):
-        return FieldAssignment(-self.lc)
+        return FieldAssignment(-self.lc, -self.v % self.lc.p)
 
     # -- constraints -------------------------------------------------------
     @classmethod
@@ -95,7 +97,7 @@ class FieldAssignment:
 
     @classmethod
     def enforce_eq_constant(cls, cs, x, c: int):
-        cs.mul_gate(x.lc, cs.one_lc(), LinComb.from_const(cs.p, c))
+        cs.mul_gate(x.lc, cs.one_lc(), cs.const_lc(c))
 
     @classmethod
     def conditional_enforce_equal(cls, cs, x, y, should_enforce: BinaryAssignment):

@@ -5,6 +5,14 @@ Parity: zkstd/src/r1cs.rs (R1cs, gates, is_sat, z_vectors), r1cs/wire.rs
 
 Values are plain ints in [0, p); rows are {wire: coeff} dicts. A wire is a
 ('x'|'w', index) tuple — ('x', 0) is the constant-one wire.
+
+Two constraint systems take the same gadget calls: `R1CS` keeps every
+constraint's rows (to freeze a shape, or to prove with Groth16), and
+`WitnessCS` keeps only the values and the count of constraints, for a
+circuit whose shape is already frozen (bellpepper's `WitnessCS`, which
+microsoft/Nova's `prove_step` synthesizes into). A gadget's linear
+combinations are the system's kind: `LinComb`s in an R1CS, `ConstantPart`s
+in a WitnessCS.
 """
 
 from __future__ import annotations
@@ -74,25 +82,61 @@ class LinComb:
         return s % self.p
 
 
-class R1CS:
-    """Constraint system over the scalar field of `driver`.
+class ConstantPart:
+    """What a WitnessCS keeps of a linear combination: what constant folding
+    reads (`LinComb.as_constant`). `c` is the constant term while the
+    combination has no wire term (0: no term at all), None once it has one.
 
-    x[0] = 1 (constant wire); public inputs/outputs append to x, private
-    values to w. a/b/c hold one LinComb per constraint:
-    (a_i . z) * (b_i . z) = (c_i . z) with z = x || w.
+    Wire terms that cancel (`(x + 5) - x`) leave a LinComb with only its
+    constant, which folds, and a ConstantPart with None, which does not:
+    the WitnessCS then allocates where the R1CS folded, and its m no longer
+    matches the frozen shape's (`r1cs_instance_and_witness` asserts it).
     """
+
+    __slots__ = ("p", "c")
+
+    def __init__(self, p: int, c: Optional[int]):
+        self.p = p
+        self.c = c
+
+    def __add__(self, o: "ConstantPart") -> "ConstantPart":
+        if self.c is None:
+            return self
+        if o.c is None:
+            return o
+        return ConstantPart(self.p, (self.c + o.c) % self.p)
+
+    def __sub__(self, o: "ConstantPart") -> "ConstantPart":
+        if self.c is None:
+            return self
+        if o.c is None:
+            return o
+        return ConstantPart(self.p, (self.c - o.c) % self.p)
+
+    def __neg__(self) -> "ConstantPart":
+        return self if self.c is None else ConstantPart(self.p, -self.c % self.p)
+
+    def scale(self, k: int) -> "ConstantPart":
+        if k % self.p == 0:
+            return ConstantPart(self.p, 0)
+        return self if self.c is None else ConstantPart(self.p, self.c * k % self.p)
+
+    def as_constant(self) -> Optional[int]:
+        return self.c or None
+
+
+class ConstraintSystem:
+    """Wires and their values over the scalar field of `driver`: x[0] = 1
+    (constant wire); public inputs/outputs append to x, private values to
+    w; m counts the constraints."""
 
     def __init__(self, driver):
         self.driver = driver
         self.p = driver.scalar.p
         self.m = 0
-        self.a: list[LinComb] = []
-        self.b: list[LinComb] = []
-        self.c: list[LinComb] = []
         self.x: list[int] = [1]
         self.w: list[int] = []
 
-    # -- structure ---------------------------------------------------------
     def l(self) -> int:
         return len(self.x)
 
@@ -104,6 +148,51 @@ class R1CS:
 
     def private_wire(self) -> Wire:
         return ("w", len(self.w))
+
+    def wire_value(self, wire: Wire) -> int:
+        kind, i = wire
+        return self.x[i] if kind == "x" else self.w[i]
+
+
+class WitnessCS(ConstraintSystem):
+    """The values of a circuit and its count of constraints, without rows:
+    for a circuit whose shape an R1CS has frozen."""
+
+    def __init__(self, driver):
+        super().__init__(driver)
+        self._wired = ConstantPart(self.p, None)
+
+    def wire_lc(self, wire: Wire) -> ConstantPart:
+        return self._wired
+
+    def const_lc(self, c: int) -> ConstantPart:
+        return ConstantPart(self.p, c % self.p)
+
+    def one_lc(self) -> ConstantPart:
+        return ConstantPart(self.p, 1)
+
+    def append(self, *lcs):
+        self.m += 1
+
+    mul_gate = add_gate = sub_gate = equal_gate = append
+
+
+class R1CS(ConstraintSystem):
+    """Constraint system with its rows. a/b/c hold one LinComb per
+    constraint: (a_i . z) * (b_i . z) = (c_i . z) with z = x || w.
+    """
+
+    def __init__(self, driver):
+        super().__init__(driver)
+        self.a: list[LinComb] = []
+        self.b: list[LinComb] = []
+        self.c: list[LinComb] = []
+
+    def wire_lc(self, wire: Wire) -> LinComb:
+        return LinComb.from_wire(self.p, wire)
+
+    def const_lc(self, c: int) -> LinComb:
+        return LinComb.from_const(self.p, c)
 
     def append(self, a: LinComb, b: LinComb, c: LinComb):
         self.a.append(a)
@@ -125,10 +214,6 @@ class R1CS:
 
     def equal_gate(self, x: LinComb, y: LinComb):
         self.mul_gate(x, self.one_lc(), y)
-
-    def wire_value(self, wire: Wire) -> int:
-        kind, i = wire
-        return self.x[i] if kind == "x" else self.w[i]
 
     # -- evaluation --------------------------------------------------------
     def evaluate(self):

@@ -1,6 +1,6 @@
 """The port's Nova (kogarashi_tpu_torch.nova) against the JAX package's, on
-the CPU: the augmented step circuits (shapes, matrices and witnesses), the
-Pedersen keys in both sampling modes, commit against commit_host, NIFS folds
+the CPU: the augmented step circuits (shapes, matrices and witnesses), their
+witness-only synthesis (`WitnessCS`) against the full one, the Pedersen keys in both sampling modes, commit against commit_host, NIFS folds
 over both drivers with the same keys (carried over by `interop`), and, marked
 slow, the full 3-step chain under the reference seed against the JAX
 package's proof digest. Values cross between the packages as ints: their
@@ -40,7 +40,7 @@ from kogarashi_tpu_torch.nova.relaxed_r1cs import (
     RelaxedR1csWitness,
     r1cs_instance_and_witness,
 )
-from kogarashi_tpu_torch.r1cs import BN254_DRIVER, GRUMPKIN_DRIVER, R1CS, FieldAssignment
+from kogarashi_tpu_torch.r1cs import BN254_DRIVER, GRUMPKIN_DRIVER, R1CS, FieldAssignment, WitnessCS
 from kogarashi_tpu_torch.utils.serde import encode_recursive_proof
 from kogarashi_tpu_torch.utils.xorshift import REFERENCE_TEST_SEED, XorShiftRng
 
@@ -88,6 +88,33 @@ def _synth(pkg_driver, other, fc, Aug, R1, is_primary, i, inputs):
     return cs, [v.value(cs) for v in z]
 
 
+def _step_inputs(primary, step):
+    """The drivers of a side and step `step`'s inputs, JAX-made (a step-1
+    instance of real points and x values) and carried over by `interop`:
+    (me, other, JAX inputs, port inputs)."""
+    me, other = (BN254_DRIVER, GRUMPKIN_DRIVER) if primary else (GRUMPKIN_DRIVER, BN254_DRIVER)
+    jin, pin = {}, {}
+    if step:
+        jin = _jax_inputs(JGR if primary else JBN, 7 + primary)
+        pin = dict(z_i=list(jin["z_i"]),
+                   u_single=interop.instance_from_jax(other, jin["u_single"]),
+                   u_range=interop.relaxed_instance_from_jax(jin["u_range"]),
+                   commit_t=interop.commit_point(other, jin["commit_t"]))
+    return me, other, jin, pin
+
+
+_FULL = {}
+
+
+def _port_full(primary, step):
+    """The port's circuit of a side and step synthesized into an R1CS,
+    (cs, z_next values), once per module."""
+    if (primary, step) not in _FULL:
+        me, other, _, pin = _step_inputs(primary, step)
+        _FULL[primary, step] = _synth(me, other, ExampleFunction, AugmentedFCircuit, R1CS, primary, step, pin)
+    return _FULL[primary, step]
+
+
 def _same_circuit(cs, jcs):
     assert (cs.m, cs.l(), cs.m_l_1()) == (jcs.m, jcs.l(), jcs.m_l_1())
     assert cs.x == jcs.x and cs.w == jcs.w
@@ -102,21 +129,28 @@ def test_augmented_circuit_matches_jax(primary, step):
     """Step 0 (the base case) and step 1 fed the same JAX-made instances
     through `interop`: the same m, l, m_l_1, A/B/C triples, public inputs,
     witness and z_next (about 1 s of synthesis per package)."""
-    me, other = (BN254_DRIVER, GRUMPKIN_DRIVER) if primary else (GRUMPKIN_DRIVER, BN254_DRIVER)
     jme, jother = (JBN, JGR) if primary else (JGR, JBN)
-    jin, pin = {}, {}
-    if step:
-        jin = _jax_inputs(jother, 7 + primary)
-        pin = dict(z_i=list(jin["z_i"]),
-                   u_single=interop.instance_from_jax(other, jin["u_single"]),
-                   u_range=interop.relaxed_instance_from_jax(jin["u_range"]),
-                   commit_t=interop.commit_point(other, jin["commit_t"]))
-    cs, z = _synth(me, other, ExampleFunction, AugmentedFCircuit, R1CS, primary, step, pin)
+    _, _, jin, _ = _step_inputs(primary, step)
+    cs, z = _port_full(primary, step)
     jcs, jz = _synth(jme, jother, JExampleFunction, JAugmented, JR1CS, primary, step, jin)
     _same_circuit(cs, jcs)
     assert z == jz
     if not step:  # the sizes PublicParams.setup freezes
         assert (cs.m, cs.m_l_1()) == ((76934, 64230) if primary else (78982, 66284))
+
+
+@pytest.mark.parametrize("primary", [True, False], ids=["primary", "secondary"])
+@pytest.mark.parametrize("step", [0, 1])
+def test_witness_only_synthesis_matches_full(primary, step):
+    """The same circuit and inputs synthesized into a WitnessCS (what `Ivc`
+    and `prove_step` do) and into an R1CS (what `PublicParams.setup` does):
+    the same m, l, m_l_1, public inputs, witness and z_next, element for
+    element, at the base case and at step 1."""
+    me, other, _, pin = _step_inputs(primary, step)
+    cs, z = _port_full(primary, step)
+    ws, wz = _synth(me, other, ExampleFunction, AugmentedFCircuit, WitnessCS, primary, step, pin)
+    assert (ws.m, ws.l(), ws.m_l_1()) == (cs.m, cs.l(), cs.m_l_1())
+    assert ws.x == cs.x and ws.w == cs.w and wz == z
 
 
 # ---------------------------------------------------------------------------
