@@ -19,18 +19,16 @@ from kogarashi_tpu.curves import G1 as JG1
 from kogarashi_tpu.fields import FQ_OPS, FR_OPS
 from kogarashi_tpu.fields.spec import N_LIMBS
 from kogarashi_tpu.nova.function import ExampleFunction as JExampleFunction
-from kogarashi_tpu.r1cs.vector import SquareChainCircuit as JSquareChainCircuit
 from kogarashi_tpu_torch import bench, entry
 from kogarashi_tpu_torch.benches import groth16_large, ivc_chain, microbench
 from kogarashi_tpu_torch.curves import G1, decode_points
+from test_torch_groth16 import GROTH16_KEYS
 
 torch.set_num_threads(2)  # the suite runs several workers side by side
 
 ROOT = Path(__file__).resolve().parent.parent
 
 BENCH_KEYS = {"metric", "value", "unit", "vs_baseline"}  # bench.py:98-103
-GROTH16_KEYS = {"metric", "constraints", "setup_s", "prove_s", "verify_s", "verified", "tamper_rejected",
-                "backend"}  # benches/groth16_large.py:67-76
 IVC_KEYS = {"metric", "steps", "setup_s", "chain_s", "steps_per_s", "steady_step_s", "final_verified",
             "tamper_rejected", "backend"}  # benches/ivc_chain.py:69-79
 
@@ -64,8 +62,9 @@ def test_bench_workload_is_bench_py():
 
 def test_bench_main_env_overrides(monkeypatch, capsys):
     """KOGARASHI_BENCH_LOG_N / _C / _REPS are honoured; the MSM is held to the
-    oracle on every call; stdout is one JSON line with bench.py's keys."""
-    for k, v in (("LOG_N", "8"), ("C", "8"), ("REPS", "1")):
+    oracle on every call; stdout is one JSON line with bench.py's keys.
+    LOG_N = 6 is the smallest n that tiles the 64 bases."""
+    for k, v in (("LOG_N", "6"), ("C", "8"), ("REPS", "1")):
         monkeypatch.setenv(f"KOGARASHI_BENCH_{k}", v)
     assert bench.main(["--device", "cpu"]) == 0
     out, err = capsys.readouterr()
@@ -73,10 +72,10 @@ def test_bench_main_env_overrides(monkeypatch, capsys):
     assert len(lines) == 1
     rec = json.loads(lines[0])
     assert set(rec) == BENCH_KEYS
-    assert rec["metric"] == "bn254_g1_msm_point_adds_per_s_2^8"
+    assert rec["metric"] == "bn254_g1_msm_point_adds_per_s_2^6"
     assert rec["unit"] == "point-adds/s/chip"
     assert rec["value"] > 0 and rec["vs_baseline"] == rec["value"] / 1e8
-    assert err.startswith("# n=2^8 c=8 windows=32 ") and "oracle=PASS" in err and "device=cpu" in err
+    assert err.startswith("# n=2^6 c=8 windows=32 ") and "oracle=PASS" in err and "device=cpu" in err
     assert err.count("times=[") == 1 and len(err.split("times=[")[1].split("]")[0].split(",")) == 1
 
 
@@ -105,18 +104,6 @@ def test_entry_is_graft_entry():
     assert fn.keywords == {"c": 8}
     assert _ints(decode_points(G1, fn(x, y, inf, scalars))[0]) == _ints(want) == _ints(entry.oracle())
     assert entry.dryrun_multichip.__module__ == "kogarashi_tpu_torch.parallel.dryrun"
-
-
-def test_groth16_large_run():
-    """SquareChainCircuit(2^2) through groth16_large.run on the CPU: the
-    proof verifies and a changed last public input is rejected; the public
-    inputs are the JAX package's circuit's."""
-    record, (proof, inputs, verifier) = groth16_large.run(2, "cpu")
-    assert set(record) == GROTH16_KEYS
-    assert record["metric"] == "groth16_prove_2^2_constraints" and record["constraints"] == 4
-    assert record["verified"] is True and record["tamper_rejected"] is True and record["backend"] == "cpu"
-    assert inputs == JSquareChainCircuit(4).build().x[1:]
-    assert verifier.verify(proof, inputs)
 
 
 def test_groth16_large_main_writes_only_out(monkeypatch, capsys, tmp_path):

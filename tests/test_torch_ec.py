@@ -1,11 +1,11 @@
 """K1-K4 plain versions (kogarashi_tpu_torch.ops.ec, the path a CPU tensor
 takes) against the JAX package's entry points `ec_pallas.map_padd /
 map_pdouble / scan_mixed / scan_proj (mode="xla")`, run eagerly inside
-`jax.disable_jit()`, and against pyref. G1 and G2 at C = 128, L = 2,
-including the identity, P + P and P + (-P). Points are compared decoded to
+`jax.disable_jit()`, and against pyref. G1, G2 and Grumpkin at C = 128,
+L = 2, including the identity, P + P and P + (-P), each check one
+parametrised test over the three curves. Points are compared decoded to
 affine, exactly, by their integer coordinates: the two packages' pyref
-classes never compare equal. G1 here; G2 in test_torch_ec_g2.py and
-Grumpkin in test_torch_grumpkin.py (same checks)."""
+classes never compare equal."""
 
 import random
 
@@ -151,21 +151,25 @@ def check_scan_proj(name):
     assert coords(got) == coords(_decode_scan_jax(jcurve, want))
 
 
-def test_map_padd_vs_jax_g1():
-    check_map_padd("g1")
+@pytest.mark.parametrize("name", list(CURVES))
+def test_map_padd_vs_jax(name):
+    check_map_padd(name)
 
 
 @pytest.mark.parametrize("times", [1, 3])
-def test_map_pdouble_vs_jax_g1(times):
-    check_map_pdouble("g1", times)
+@pytest.mark.parametrize("name", list(CURVES))
+def test_map_pdouble_vs_jax(name, times):
+    check_map_pdouble(name, times)
 
 
-def test_scan_mixed_vs_jax_g1():
-    check_scan_mixed("g1")
+@pytest.mark.parametrize("name", list(CURVES))
+def test_scan_mixed_vs_jax(name):
+    check_scan_mixed(name)
 
 
-def test_scan_proj_vs_jax_g1():
-    check_scan_proj("g1")
+@pytest.mark.parametrize("name", list(CURVES))
+def test_scan_proj_vs_jax(name):
+    check_scan_proj(name)
 
 
 def test_wrappers_check_inputs():
@@ -178,20 +182,26 @@ def test_wrappers_check_inputs():
         ec.scan_mixed(G1, x.transpose(1, 2), x.transpose(1, 2))
 
 
-@pytest.mark.parametrize("kernel,curve,shape,times,muls,n_in", [
-    ("scan_mixed", G1, (8, 128, 131072), 1, 11, 2),
-    ("scan_proj", G2, (16, 8, 65552), 1, 42, 3),
-    ("map_padd", G2, (16, 1 << 20), 1, 42, 6),
-    ("map_pdouble", G1, (8, 1), 16, 8, 3),
+@pytest.mark.parametrize("kernel,name,shape,times,muls,n_in", [
+    ("scan_mixed", "g1", (8, 128, 131072), 1, 11, 2),
+    ("scan_proj", "g2", (16, 8, 65552), 1, 42, 3),
+    ("map_padd", "g2", (16, 1 << 20), 1, 42, 6),
+    ("map_pdouble", "g1", (8, 1), 16, 8, 3),
+    ("scan_mixed", "grumpkin", (8, 16, 78992), 1, 11, 2),
+    ("scan_proj", "grumpkin", (8, 8, 65552), 1, 12, 3),
+    ("map_padd", "grumpkin", (8, 78982), 1, 12, 6),
+    ("map_pdouble", "grumpkin", (8, 1), 16, 8, 3),
 ])
-def test_bound_ms(kernel, curve, shape, times, muls, n_in):
+def test_bound_ms(kernel, name, shape, times, muls, n_in):
     """The bound chip_smoke.py reports: 264 32-bit multiply-adds per
     Montgomery multiply at 64 per SM per clock on 132 SMs, or each input
-    read and each output written once at 3.35 TB/s, whichever is longer."""
+    read and each output written once at 3.35 TB/s, whichever is longer.
+    Grumpkin's b3 (-51) is seven adds and a negation, as G1's is adds: its
+    point ops count G1's multiplies."""
     clock, lanes = 1.98e9, int(np.prod(shape[1:]))
     t_ops = lanes * times * muls * 264 / (132 * 64 * clock) * 1e3
     t_bytes = (n_in + 3) * shape[0] * 4 * lanes / 3.35e12 * 1e3
-    ms, by = ec.bound_ms(kernel, curve, shape, clock, times)
+    ms, by = ec.bound_ms(kernel, CURVES[name][0], shape, clock, times)
     assert ms == pytest.approx(max(t_ops, t_bytes), rel=1e-12)
     assert by == ("operations" if t_ops >= t_bytes else "bytes")
 

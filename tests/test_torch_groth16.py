@@ -1,16 +1,23 @@
 """The port's slice on the CPU: setup -> prove -> verify (plain versions of
-the kernels), and a whole-slice comparison with the JAX package."""
+the kernels), `benches.groth16_large.run` on a small square chain, and a
+whole-slice comparison with the JAX package."""
 
+import dataclasses
 import random
 
 import pytest
 import torch
 
+from kogarashi_tpu.r1cs.vector import SquareChainCircuit as JSquareChainCircuit
+from kogarashi_tpu_torch.benches import groth16_large
 from kogarashi_tpu_torch.errors import InconsistentPublicInputsLen
-from kogarashi_tpu_torch.groth16 import Circuit, SquareChainCircuit, setup
+from kogarashi_tpu_torch.groth16 import Circuit, setup
 from kogarashi_tpu_torch.r1cs import FieldAssignment
 
 torch.set_num_threads(2)  # the suite runs several workers side by side
+
+GROTH16_KEYS = {"metric", "constraints", "setup_s", "prove_s", "verify_s", "verified", "tamper_rejected",
+                "backend"}  # benches/groth16_large.py:67-76
 
 
 class CubicCircuit(Circuit):
@@ -39,15 +46,35 @@ def test_cubic_prove_verify():
         verifier.verify(proof, [3, 35, 1])
 
 
-def test_square_chain_prove_verify():
-    circuit = SquareChainCircuit(16)
-    cs = circuit.build()
-    prover, verifier = setup(circuit, random.Random(11), device="cpu")
-    proof = prover.create_proof(circuit, random.Random(12))
-    assert verifier.verify(proof, cs.x[1:])
-    assert not verifier.verify(proof, [cs.x[1], cs.x[2] + 1])
-    proof.a = proof.a + proof.a.spec.generator
-    assert not verifier.verify(proof, cs.x[1:])
+@pytest.fixture(scope="module")
+def square_chain():
+    """SquareChainCircuit(2^2) set up and proved once, through
+    groth16_large.run on the CPU: a CPU set-up and proof take tens of
+    seconds whatever the circuit's size, so the tests below share this one
+    and change only copies of it."""
+    return groth16_large.run(2, "cpu")
+
+
+def test_square_chain_prove_verify(square_chain):
+    """The square chain's proof verifies; a changed public output, and a
+    changed A (on a copy of the shared proof), are rejected."""
+    _, (proof, inputs, verifier) = square_chain
+    assert verifier.verify(proof, inputs)
+    assert not verifier.verify(proof, [inputs[0], inputs[1] + 1])
+    tampered = dataclasses.replace(proof, a=proof.a + proof.a.spec.generator)
+    assert not verifier.verify(tampered, inputs)
+
+
+def test_groth16_large_run(square_chain):
+    """SquareChainCircuit(2^2) through groth16_large.run on the CPU: the
+    record's keys and values; the proof verifies and a changed last public
+    input is rejected; the public inputs are the JAX package's circuit's."""
+    record, (proof, inputs, verifier) = square_chain
+    assert set(record) == GROTH16_KEYS
+    assert record["metric"] == "groth16_prove_2^2_constraints" and record["constraints"] == 4
+    assert record["verified"] is True and record["tamper_rejected"] is True and record["backend"] == "cpu"
+    assert inputs == JSquareChainCircuit(4).build().x[1:]
+    assert verifier.verify(proof, inputs)
 
 
 @pytest.mark.slow

@@ -1,9 +1,9 @@
 """Grumpkin (y^2 = x^3 - 17 over Fr), the commitment curve of Nova's
-secondary circuit, on the port's K1-K4 and MSM, on the CPU: the plain
-versions against the JAX package's eager `ec_pallas` entry points
-(mode="xla", inside `jax.disable_jit()`) and pyref, as test_torch_ec.py
-checks G1; an MSM against the pyref oracle with scalars near q (Grumpkin's
-group order); its bound and its lane groups."""
+secondary circuit, on the port's MSM, on the CPU: its constants against the
+JAX package's, an MSM against the pyref oracle with scalars near q
+(Grumpkin's group order), and its lane groups at a commit's shapes. K1-K4's
+parity with the JAX package and their bounds are Grumpkin's cases of the
+parametrised tests in test_torch_ec.py."""
 
 import random
 
@@ -18,7 +18,6 @@ from kogarashi_tpu_torch.curves import GRUMPKIN, decode_points, prepare_points
 from kogarashi_tpu_torch.fields.spec import ints_to_limbs16
 from kogarashi_tpu_torch.ops import ec
 from kogarashi_tpu_torch.ops import msm as M
-from test_torch_ec import check_map_padd, check_map_pdouble, check_scan_mixed, check_scan_proj
 
 torch.set_num_threads(2)  # the suite runs several workers side by side
 
@@ -29,23 +28,6 @@ def test_grumpkin_constants_match_jax():
     g, jg = GRUMPKIN.pyref_spec.generator, JGRUMPKIN_SPEC.generator
     assert (g.x.v, g.y.v) == (jg.x.v, jg.y.v)
     assert GRUMPKIN.b3 == JGRUMPKIN_SPEC.b3.v
-
-
-def test_map_padd_vs_jax_grumpkin():
-    check_map_padd("grumpkin")
-
-
-@pytest.mark.parametrize("times", [1, 3])
-def test_map_pdouble_vs_jax_grumpkin(times):
-    check_map_pdouble("grumpkin", times)
-
-
-def test_scan_mixed_vs_jax_grumpkin():
-    check_scan_mixed("grumpkin")
-
-
-def test_scan_proj_vs_jax_grumpkin():
-    check_scan_proj("grumpkin")
 
 
 @pytest.mark.parametrize("n,c", [(64, 8), (256, None)], ids=["64-c8", "256-default"])
@@ -79,23 +61,6 @@ def test_msm_vs_oracle_scalars_near_q(n, c):
         want = want + k * p
     assert decode_points(GRUMPKIN, out)[0] == want
     assert sorted(seen.items()) == sorted(M.scan_proj_launches(n, c or M.default_window(n)))
-
-
-@pytest.mark.parametrize("kernel,shape,times,muls,n_in", [
-    ("scan_mixed", (8, 16, 78992), 1, 11, 2),
-    ("scan_proj", (8, 8, 65552), 1, 12, 3),
-    ("map_padd", (8, 78982), 1, 12, 6),
-    ("map_pdouble", (8, 1), 16, 8, 3),
-])
-def test_bound_ms_grumpkin(kernel, shape, times, muls, n_in):
-    """Grumpkin's b3 (-51) is seven adds and a negation, as G1's is adds:
-    its point ops count G1's multiplies."""
-    clock, lanes = 1.98e9, int(np.prod(shape[1:]))
-    t_ops = lanes * times * muls * 264 / (132 * 64 * clock) * 1e3
-    t_bytes = (n_in + 3) * shape[0] * 4 * lanes / 3.35e12 * 1e3
-    ms, by = ec.bound_ms(kernel, GRUMPKIN, shape, clock, times)
-    assert ms == pytest.approx(max(t_ops, t_bytes), rel=1e-12)
-    assert by == ("operations" if t_ops >= t_bytes else "bytes")
 
 
 # lane_group's choice at the 13 chunk counts of one secondary commit's MSM

@@ -7,17 +7,16 @@ multiply, square, `mul_by_034`) and the plain versions (`f12_*_h`), on
 seeded values with edge components (0, 1, q - 1); the whole programs
 against the host's `multi_miller_loop` and `final_exp_fast`, the port's and
 the JAX package's, values passed between the packages as ints; each of P3's
-one-op schedules against the JAX package's tower op and P3's plain version;
-the level and multiply counts the depth floor and the bound use; and what
-the kernel relies on, read back from the table. Exact."""
+one-op schedules against P3's plain version, which
+test_torch_pairing_tower.py holds to the JAX package's tower ops on the same
+values; the level and multiply counts the depth floor and the bound use; and
+what the kernel relies on, read back from the table. Exact."""
 
-import jax
 import numpy as np
 import pytest
 import torch
 
 from kogarashi_tpu import pyref as jpyref
-from kogarashi_tpu.ops import pairing as jp
 from kogarashi_tpu.pyref import pairing_fast as jpf
 from kogarashi_tpu_torch import constants as C
 from kogarashi_tpu_torch import pyref
@@ -320,41 +319,29 @@ def test_wrappers_refuse_wrong_shapes():
 # P3's one-op schedules (`S.f12_op`): each op, frobenius at powers 1, 2, 3, 6
 ONE_OP = [("mul", 0), ("sq", 0), ("inv", 0), ("conj", 0), ("mul_by_034", 0),
           ("frobenius", 1), ("frobenius", 2), ("frobenius", 3), ("frobenius", 6)]
-JAX_OPS = {"mul": jp.f12_mul_jit, "sq": jp.f12_sq_jit, "inv": jp.f12_inv_jit, "conj": jax.jit(jp.f12_conj),
-           "mul_by_034": jax.jit(jp.f12_mul_by_034), "frobenius": jax.jit(jp.f12_frobenius, static_argnums=1)}
 
 
-def jax_fq12_words(vals):
-    return jp.encode_fq12(jpyref.Fq12.from_fq_list([jpyref.Fq(v) for v in vals]))
-
-
-def jax_op(op, power, a_vals, b_vals) -> list:
-    """The JAX package's tower op (kogarashi_tpu/ops/pairing.py) on 12 ints
-    (and the second operand's 12, or the line's 6), back as 12 ints."""
-    da = jax_fq12_words(a_vals)
-    if op == "mul":
-        r = JAX_OPS[op](da, jax_fq12_words(b_vals))
-    elif op == "mul_by_034":
-        line = jax_fq12_words(b_vals + [0] * 6)
-        r = JAX_OPS[op](da, line[0][0], line[0][1], line[0][2])  # c0, c3, c4: the first three Fq2s
-    elif op == "frobenius":
-        r = JAX_OPS[op](da, power)
-    else:
-        r = JAX_OPS[op](da)
-    return ints12(jp.decode_fq12(r))
+def one_op_values(power: int):
+    """P3's one-op inputs at a frobenius power (0 for the other ops), as 12
+    ints each: `values(20 + power, 3)` (seeded values with edge components,
+    then zero, one and all q - 1), and each one's second operand, the next
+    value; mul_by_034's line (c0, c3, c4) is that value's first six
+    components."""
+    xs = values(20 + power, 3)
+    return xs, xs[1:] + xs[:1]
 
 
 @pytest.mark.parametrize("op,power", ONE_OP, ids=[f"{op}{k if op == 'frobenius' else ''}" for op, k in ONE_OP])
-def test_f12_op_schedule_matches_jax_and_plain(op, power):
+def test_f12_op_schedule_matches_plain(op, power):
     """P3's schedule route: the one-op schedule's table, run here on Python
-    integers, equals the JAX package's tower op and P3's plain version
-    (`map_plain`, all lanes in one call) on seeded values with edge
-    components, zero, one and all q - 1; mul's second operand is another
-    value, mul_by_034's line (c0, c3, c4) another value's first six
-    components."""
+    integers, equals P3's plain version (`map_plain`, all lanes in one call)
+    on `one_op_values`: seeded values with edge components, zero, one and
+    all q - 1; mul's second operand is another value, mul_by_034's line
+    (c0, c3, c4) another value's first six components.
+    test_torch_pairing_tower.py holds the plain version to the JAX
+    package's tower op on the same values."""
     tab = Table(S.f12_op(op, power))
-    xs = values(20 + power, 3)
-    ys = xs[1:] + xs[:1]
+    xs, ys = one_op_values(power)
     seconds = {"mul": ys, "mul_by_034": [y[:6] for y in ys]}.get(op, [None] * len(xs))
     got = [tab.run(x, inputs2=y) for x, y in zip(xs, seconds)]
     a = P.encode_fq12([fq12(x) for x in xs], "cpu")
@@ -364,7 +351,6 @@ def test_f12_op_schedule_matches_jax_and_plain(op, power):
     elif op == "mul_by_034":
         b = P.encode_fq12([fq12(y + [0] * 6) for y in seconds], "cpu")[:48].contiguous()
     assert got == [ints12(v) for v in P.decode_fq12(P.map_plain(op, a, b, power))]
-    assert got == [jax_op(op, power, x, y) for x, y in zip(xs, seconds)]
 
 
 def test_f12_op_depth_and_products():
