@@ -8,6 +8,10 @@ Parity: nova/src/ — NIFS folding with Pedersen commitments and a MiMC
 Fiat-Shamir transcript, the augmented step circuit with in-circuit fold
 verification (EC scalar muls + BigNat non-native arithmetic), and the
 two-curve IVC ping-pong emitting recursive proofs.
+
+`COUNTS` (`function.py`) counts step synthesis; `R1CS_COUNTS`
+(`relaxed_r1cs.COUNTS`) counts the cross terms and where their field values
+were converted.
 """
 
 from .function import COUNTS, ExampleFunction, FunctionCircuit, MinRootFunction, TrivialFunction, reset_counts
@@ -16,12 +20,14 @@ from .nifs import NifsProver, NifsVerifier
 from .pedersen import PedersenCommitment
 from .proof import RecursiveProof
 from .relaxed_r1cs import (
+    COUNTS as R1CS_COUNTS,
     R1csInstance,
     R1csShape,
     R1csWitness,
     RelaxedR1csInstance,
     RelaxedR1csWitness,
     r1cs_instance_and_witness,
+    reset_counts as reset_r1cs_counts,
 )
 from .augmented import AugmentedFCircuit
 
@@ -32,6 +38,8 @@ __all__ = [
     "MinRootFunction",
     "TrivialFunction",
     "reset_counts",
+    "R1CS_COUNTS",
+    "reset_r1cs_counts",
     "Ivc",
     "PublicParams",
     "NifsProver",

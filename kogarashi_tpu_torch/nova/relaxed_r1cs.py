@@ -7,25 +7,40 @@ curve (G1 for the Fr circuit, Grumpkin for the Fq one).
 
 The shape's matrix products run on the device, where the JAX package runs
 them on its native C++ CSR: A, B and C go to the device once per shape (and
-instance length) as COO triples over the driver's scalar field (FR for the
-primary circuit, FQ for the secondary), and each product is one
-`ops.spmv.coo_matvec`. The NIFS cross term and the satisfiability checks
-are formed there too; ints come back only where the protocol needs them.
+instance length) as one stacked COO matrix over the driver's scalar field
+(FR for the primary circuit, FQ for the secondary), and the three products
+of a z are one `ops.spmv.coo_matvec`. The NIFS cross term and the
+satisfiability checks are formed there too; ints come back only where the
+protocol needs them. The field conversions run there as well: values go up
+as standard-form words and `from_std` makes them Montgomery on the device;
+T comes back through `to_std`, so the host only packs and unpacks words.
+`COUNTS` shows where each element was converted.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
 
+import numpy as np
 import torch
 
 from .. import constants as C
 from ..devices import resolve
 from ..fields import mont
-from ..fields.spec import FQ, FR, FieldSpec
+from ..fields.spec import FQ, FR, FieldSpec, ints_to_words, words_to_ints
 from ..ops import spmv
 from ..pyref import MimcRO
 from ..r1cs import WitnessCS
+
+# cross terms formed; elements R1csShape converted into or out of Montgomery
+# form on the device; elements it reduced on the host first (values outside
+# [0, 2^256), which no caller passes)
+COUNTS: dict = {"cross_terms": 0, "device_converted": 0, "host_converted": 0}
+
+
+def reset_counts() -> None:
+    for k in COUNTS:
+        COUNTS[k] = 0
 
 
 @dataclass(eq=False)
@@ -75,40 +90,56 @@ class R1csShape:
     def m_l_1(self) -> int:
         return self.witness_length
 
-    def _matrices(self, l: int) -> list:
-        """[A, B, C] as COO dicts on the device for z = [u | x | w] with
-        len(x) = l - 1: ("x", i) is column i, ("w", i) column i + l."""
+    def _abc(self, l: int) -> dict:
+        """A, B and C stacked as one COO dict on the device for z = [u | x | w]
+        with len(x) = l - 1: ("x", i) is column i, ("w", i) column i + l; B's
+        rows follow A's and C's B's, so one product gives all three."""
         cache = self.__dict__.setdefault("_coo", {})
-        mats = cache.get(l)
-        if mats is None:
-            mats = []
-            for rows in (self.a, self.b, self.c):
-                ri, ci, vals = [], [], []
-                for i, row in enumerate(rows):
+        mat = cache.get(l)
+        if mat is None:
+            ri, ci, vals = [], [], []
+            for first, rows in zip((0, self.m, 2 * self.m), (self.a, self.b, self.c)):
+                for i, row in enumerate(rows, first):
                     for (kind, k), coeff in row.terms.items():
                         ri.append(i)
                         ci.append(k if kind == "x" else k + l)
                         vals.append(coeff)
-                mats.append(spmv.coo_matrix(ri, ci, vals, self.spec, self.device))
-            mats = cache[l] = mats
-        return mats
+            mat = cache[l] = spmv.coo_matrix(ri, ci, vals, self.spec, self.device)
+        return mat
 
-    def encode(self, vals):
-        """Field ints -> (16, n) int64 Montgomery halves on the device."""
-        words = torch.from_numpy(self.spec.encode(vals)).to(self.device)
-        return mont.to_halves(words)
+    def _std_words(self, vals: list) -> np.ndarray:
+        """Ints -> (W, n) standard-form words, packed as they are. A value
+        outside [0, 2^256) is reduced mod p here first, and counted."""
+        try:
+            return ints_to_words(vals, self.spec.n_words)
+        except OverflowError:
+            inside = [0 <= v < self.spec.mont_r for v in vals]
+            COUNTS["host_converted"] += inside.count(False)
+            vals = [v if ok else v % self.p for v, ok in zip(vals, inside)]
+            return ints_to_words(vals, self.spec.n_words)
+
+    def encode(self, vals: list):
+        """Field ints -> (16, n) int64 Montgomery halves on the device:
+        `from_std` there, canonical for every value below 2^256 (the CIOS
+        product of a < 2^256 and R^2 mod p)."""
+        std = torch.from_numpy(self._std_words(vals)).to(self.device)
+        COUNTS["device_converted"] += std.shape[1]
+        return mont.field(self.spec).from_std(mont.to_halves(std))
 
     def decode(self, halves) -> list:
-        """(16, n) halves on the device -> field ints."""
-        return self.spec.decode(mont.to_words(halves).cpu().numpy())
+        """(16, n) Montgomery halves on the device -> field ints: `to_std`
+        there, one copy back."""
+        COUNTS["device_converted"] += halves.shape[1]
+        std = mont.field(self.spec).to_std(halves)
+        return words_to_ints(mont.to_words(std).cpu().numpy())
 
     def products(self, u: int, x: list, w: list):
         """(A z, B z, C z) for z = [u | x | w], as (16, m) halves on the
-        device (SparseMatrix::prod, relaxed_r1cs.rs)."""
-        l = len(x) + 1
-        z = mont.to_words(self.encode([u] + list(x) + list(w)))
-        return tuple(mont.to_halves(spmv.matvec(mat, z, self.m, self.spec))
-                     for mat in self._matrices(l))
+        device (SparseMatrix::prod, relaxed_r1cs.rs). The products are
+        queued without a wait, so the host packs the next z while they run."""
+        z = mont.to_words(self.encode([u, *x, *w]))
+        abc = spmv.matvec(self._abc(len(x) + 1), z, 3 * self.m, self.spec)
+        return mont.to_halves(abc).split(self.m, dim=1)
 
     def _lengths_ok(self, x: list, w: list) -> bool:
         return len(x) == self.l() and len(w) == self.m_l_1()
@@ -116,6 +147,7 @@ class R1csShape:
     def cross_term(self, instance1, witness1, instance2, witness2) -> list:
         """T = AZ1 o BZ2 + AZ2 o BZ1 - u1 CZ2 - u2 CZ1 with u2 = 1
         (prover.rs:53-90), on the device; returned as ints."""
+        COUNTS["cross_terms"] += 1
         F = mont.field(self.spec)
         az1, bz1, cz1 = self.products(instance1.u, instance1.x, witness1.w)
         az2, bz2, cz2 = self.products(1, instance2.x, witness2.w)

@@ -181,6 +181,97 @@ def test_pedersen_commit_matches_host(dev, name, mode):
     assert ck.commit(m) == ck.commit_host(m)
 
 
+def _host_route_matrices(shape, l):
+    """A, B and C as three COO dicts on the shape's device, z = [u | x | w]
+    with len(x) = l - 1."""
+    from kogarashi_tpu_torch.ops import spmv
+
+    mats = []
+    for rows in (shape.a, shape.b, shape.c):
+        ri, ci, vals = zip(*[(i, k if kind == "x" else k + l, c)
+                             for i, row in enumerate(rows) for (kind, k), c in row.terms.items()])
+        mats.append(spmv.coo_matrix(ri, ci, vals, shape.spec, shape.device))
+    return mats
+
+
+def _host_route_products(shape, mats, u, x, w):
+    """(A z, B z, C z) as halves, z encoded on the host (`FieldSpec.encode`)
+    and one `spmv.matvec` a matrix: the route R1csShape took before its
+    conversions moved to the device."""
+    from kogarashi_tpu_torch.ops import spmv
+
+    z = torch.from_numpy(shape.spec.encode([u, *x, *w])).to(shape.device)
+    return [mont.to_halves(spmv.matvec(mat, z, shape.m, shape.spec)) for mat in mats]
+
+
+def _host_route_ints(shape, halves):
+    return shape.spec.decode(mont.to_words(halves).cpu().numpy())
+
+
+def _host_route_sat(shape, mats, u, x, w, e):
+    """is_sat_relaxed on the host route."""
+    F = mont.field(shape.spec)
+    az, bz, cz = _host_route_products(shape, mats, u, x, w)
+    ue, ee = (mont.to_halves(torch.from_numpy(shape.spec.encode(v)).to(shape.device)) for v in ([u], e))
+    return bool(torch.equal(F.mul(az, bz), F.add(F.mul(ue.expand_as(cz), cz), ee)))
+
+
+@pytest.mark.parametrize("primary", [True, False], ids=["primary", "secondary"])
+def test_nova_cross_term_matches_host_route(dev, primary):
+    """The Example's augmented shape (76934 rows primary, 78982 secondary) on
+    the card and a relaxed pair drawn from a seed, (u1, x1, W1, E1)
+    satisfying and (x2, w2) not: T from R1csShape.cross_term equals the host
+    route's T word for word, with no element converted on the host; the pair
+    folded with T and r (E = E1 + r T + r^2 E2) satisfies is_sat_relaxed on
+    both routes, and one changed E entry fails both."""
+    from kogarashi_tpu_torch.nova import R1CS_COUNTS, ExampleFunction, reset_r1cs_counts
+    from kogarashi_tpu_torch.nova.augmented import AugmentedFCircuit
+    from kogarashi_tpu_torch.nova.relaxed_r1cs import (
+        R1csInstance, R1csShape, R1csWitness, RelaxedR1csInstance, RelaxedR1csWitness,
+    )
+    from kogarashi_tpu_torch.r1cs import BN254_DRIVER, GRUMPKIN_DRIVER, R1CS
+
+    me, other = (BN254_DRIVER, GRUMPKIN_DRIVER) if primary else (GRUMPKIN_DRIVER, BN254_DRIVER)
+    cs = R1CS(me)
+    AugmentedFCircuit(other_driver=other, fc=ExampleFunction, is_primary=primary, z_0=[0]).generate(cs)
+    shape = R1csShape.from_r1cs(cs, dev)
+    p, m = shape.p, shape.m
+    assert m == (76934 if primary else 78982)
+    rng = random.Random(1900 + primary)
+    draw = lambda n: [rng.randrange(p) for _ in range(n)]  # noqa: E731
+    u1, x1, w1 = rng.randrange(2, p), draw(shape.l()), draw(shape.m_l_1())
+    x2, w2 = draw(shape.l()), draw(shape.m_l_1())
+    F = mont.field(shape.spec)
+    mats = _host_route_matrices(shape, shape.l() + 1)
+    az1, bz1, cz1 = _host_route_products(shape, mats, u1, x1, w1)
+    az2, bz2, cz2 = _host_route_products(shape, mats, 1, x2, w2)
+    u1h = mont.to_halves(torch.from_numpy(shape.spec.encode([u1])).to(dev)).expand_as(cz1)
+    e1 = _host_route_ints(shape, F.sub(F.mul(az1, bz1), F.mul(u1h, cz1)))
+    e2 = _host_route_ints(shape, F.sub(F.mul(az2, bz2), cz2))
+    want = _host_route_ints(shape, F.sub(F.sub(F.add(F.mul(az2, bz1), F.mul(az1, bz2)), F.mul(u1h, cz2)), cz1))
+
+    ident = me.commit_curve.identity_affine()
+    i1 = RelaxedR1csInstance(driver=me, commit_w=ident, commit_e=ident, u=u1, x=x1)
+    wt1 = RelaxedR1csWitness(w=w1, e=e1)
+    reset_r1cs_counts()
+    t = shape.cross_term(i1, wt1, R1csInstance(commit_w=ident, x=x2), R1csWitness(w=w2))
+    assert t == want
+    assert R1CS_COUNTS == {"cross_terms": 1, "host_converted": 0,
+                           "device_converted": 2 * (1 + shape.l() + shape.m_l_1()) + 1 + m}
+
+    r = rng.randrange(1, 1 << 128)
+    fold = lambda a, b: [(va + r * vb) % p for va, vb in zip(a, b)]  # noqa: E731
+    u, x, w = (u1 + r) % p, fold(x1, x2), fold(w1, w2)
+    e = [(a + r * b + r * r * c) % p for a, b, c in zip(e1, t, e2)]
+    folded = RelaxedR1csInstance(driver=me, commit_w=ident, commit_e=ident, u=u, x=x)
+    assert shape.is_sat_relaxed(folded, RelaxedR1csWitness(w=w, e=e))
+    assert _host_route_sat(shape, mats, u, x, w, e)
+    e[m // 2] = (e[m // 2] + 1) % p
+    assert not shape.is_sat_relaxed(folded, RelaxedR1csWitness(w=w, e=e))
+    assert not _host_route_sat(shape, mats, u, x, w, e)
+    assert R1CS_COUNTS["host_converted"] == 0
+
+
 # ---------------------------------------------------------------------------
 # Edwards kernels E1-E3 (csrc/edwards.cu) and RedDSA batch verification
 # ---------------------------------------------------------------------------

@@ -1,7 +1,8 @@
 """The port's Nova (kogarashi_tpu_torch.nova) against the JAX package's, on
 the CPU: the augmented step circuits (shapes, matrices and witnesses), their
 witness-only synthesis (`WitnessCS`) against the full one, the Pedersen keys in both sampling modes, commit against commit_host, NIFS folds
-over both drivers with the same keys (carried over by `interop`), and, marked
+over both drivers with the same keys (carried over by `interop`), the shape's
+cross term and relaxed check against plain ints, and, marked
 slow, the full 3-step chain under the reference seed against the JAX
 package's proof digest. Values cross between the packages as ints: their
 pyref classes never compare equal."""
@@ -31,11 +32,14 @@ from kogarashi_tpu.utils.serde import encode_recursive_proof as j_encode
 from kogarashi_tpu.utils.xorshift import XorShiftRng as JXorShiftRng
 from kogarashi_tpu_torch import constants as C
 from kogarashi_tpu_torch import interop
-from kogarashi_tpu_torch.nova import ExampleFunction, Ivc, PublicParams
+from kogarashi_tpu_torch.nova import R1CS_COUNTS, ExampleFunction, Ivc, PublicParams, reset_r1cs_counts
 from kogarashi_tpu_torch.nova.augmented import AugmentedFCircuit
 from kogarashi_tpu_torch.nova.nifs import NifsProver, NifsVerifier
 from kogarashi_tpu_torch.nova.pedersen import PedersenCommitment
 from kogarashi_tpu_torch.nova.relaxed_r1cs import (
+    R1csInstance,
+    R1csShape,
+    R1csWitness,
     RelaxedR1csInstance,
     RelaxedR1csWitness,
     r1cs_instance_and_witness,
@@ -269,6 +273,52 @@ def test_nifs_matches_jax():
         assert shape.is_sat_relaxed(fi, fw) and shape.is_sat(ck, i2, wt2)
         fw.e[0] = (fw.e[0] + 1) % shape.p
         assert not shape.is_sat_relaxed(fi, fw)
+
+
+def _int_products(shape, u, x, w):
+    """(A z, B z, C z) in plain ints from the shape's own rows, z = [u | x | w]."""
+    z, l, p = [u, *x, *w], len(x) + 1, shape.p
+    return [[sum(int(c) * z[k if kind == "x" else k + l] for (kind, k), c in row.terms.items()) % p
+             for row in rows] for rows in (shape.a, shape.b, shape.c)]
+
+
+@pytest.mark.parametrize("name", ["bn254", "grumpkin"])
+def test_cross_term_and_relaxed_check_match_ints(name):
+    """R1csShape.cross_term and is_sat_relaxed, their field values converted
+    on the device, against plain ints over the shape's own rows
+    (example_r1cs, Fr and Fq): 0, 1 and p - 1 in x and W, u1 outside {0, 1};
+    a W value in [p, 2^256) gives its reduction's T with nothing reduced on
+    the host, a negative one is reduced there and counted. R1CS_COUNTS: one
+    cross term, its z1, z2, u1 and T converted on the device."""
+    driver = DRIVERS[name][0]
+    shape = R1csShape.from_r1cs(example_r1cs(FieldAssignment, R1CS, driver, 4), device="cpu")
+    p, m, rng = shape.p, shape.m, random.Random(19)
+    assert (shape.l(), shape.m_l_1()) == (2, 3)
+    u1, x1, w1 = rng.randrange(2, p), [p - 1, 0], [1, p - 1, rng.randrange(p)]
+    x2, w2 = [1, p - 1], [0, rng.randrange(p), 1]
+    ident = driver.commit_curve.identity_affine()
+    i2, wt2 = R1csInstance(commit_w=ident, x=x2), R1csWitness(w=w2)
+    a1, b1, c1 = _int_products(shape, u1, x1, w1)
+    a2, b2, c2 = _int_products(shape, 1, x2, w2)
+    want = [(a1[i] * b2[i] + a2[i] * b1[i] - u1 * c2[i] - c1[i]) % p for i in range(m)]
+    e1 = [(a1[i] * b1[i] - u1 * c1[i]) % p for i in range(m)]
+
+    for w, host in ((w1, 0), ([w1[0], w1[1], w1[2] + p], 0), ([w1[0], -1, w1[2]], 1)):
+        i1 = RelaxedR1csInstance(driver=driver, commit_w=ident, commit_e=ident, u=u1, x=x1)
+        wt1 = RelaxedR1csWitness(w=w, e=e1)
+        reset_r1cs_counts()
+        assert shape.cross_term(i1, wt1, i2, wt2) == want
+        z_len = 1 + len(x1) + len(w)
+        assert R1CS_COUNTS == {"cross_terms": 1, "device_converted": 2 * z_len + 1 + m,
+                               "host_converted": host}
+        reset_r1cs_counts()
+        assert shape.is_sat_relaxed(i1, wt1)
+        assert R1CS_COUNTS == {"cross_terms": 0, "device_converted": z_len + 1 + m,
+                               "host_converted": host}
+        wt1.e = [e1[0], (e1[1] + 1) % p, *e1[2:]]
+        assert not shape.is_sat_relaxed(i1, wt1)
+    reset_r1cs_counts()
+    assert set(R1CS_COUNTS.values()) == {0}
 
 
 def test_recursive_proof_from_jax_encodes_alike():
